@@ -62,7 +62,10 @@ import sys
 import velociraptor_stf_tpu_torch
 from velociraptor_stf_tpu_torch import convert, kernels
 from velociraptor_stf_tpu_torch.kernels import _build, fof_sweep, potential
-from velociraptor_stf_tpu_torch.models import halos, pipeline, unbind
+from velociraptor_stf_tpu_torch.models import (halos, pipeline, properties,
+                                               unbind)
+from velociraptor_stf_tpu_torch.ops import cells, gravity, segments, so
+from velociraptor_stf_tpu_torch import cli
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",
                                  "fof_sweep6d", "potential"}
@@ -85,3 +88,37 @@ except RuntimeError as e:
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "RAISED" in proc.stdout
+
+
+def test_port_writes_catalog_without_jax():
+    """find_structures and the CLI on the CPU with jax never imported
+    (the GPU machine has no jax and no h5py: binary catalogs)."""
+    code = """
+import sys, tempfile, os
+import numpy as np
+from velociraptor_stf_tpu.io import gadget
+from velociraptor_stf_tpu.io.synthetic import make_cosmo_mock
+from velociraptor_stf_tpu_torch import cli
+
+n, box = 4096, 20.0
+pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=6, seed=3)
+d = tempfile.mkdtemp()
+snap = os.path.join(d, "snap")
+gadget.write_gadget(snap, pos, vel, np.arange(1, n + 1),
+                    np.ones(n, np.int8), mass, boxsize=box, hubble=1.0)
+cfg = os.path.join(d, "run.cfg")
+with open(cfg, "w") as f:
+    f.write(open("examples/sample_dmcosmological_run.cfg").read() +
+            "\\nFoF_Field_search_type=4\\nSearch_for_substructure=0\\n"
+            "Bound_halos=1\\nBinary_output=1\\nMinimum_halo_size=32\\n")
+out = os.path.join(d, "cat")
+assert cli.main(["-C", cfg, "-i", snap, "-o", out, "--device", "cpu"]) == 0
+for ext in (".properties", ".catalog_groups", ".catalog_particles",
+            ".hierarchy", ".profiles"):
+    assert os.path.getsize(out + ext) > 0, ext
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")

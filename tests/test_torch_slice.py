@@ -1,6 +1,7 @@
 """The port's main path (velociraptor_stf_tpu_torch.models.pipeline.
 search_and_unbind: 3DFOF -> 6DFOF -> field unbind) against the JAX
-package's stages and against the independent float64 oracle chain.
+package's stages and against the independent float64 oracle chain, and the
+modes neither entry point has ported yet.
 
 Group ids and counts must be exactly equal; potentials within rel 1e-4.
 """
@@ -17,7 +18,8 @@ from velociraptor_stf_tpu.utils import config as C
 from velociraptor_stf_tpu.utils import units
 from velociraptor_stf_tpu.validation import oracles
 
-from velociraptor_stf_tpu_torch.models.pipeline import search_and_unbind
+from velociraptor_stf_tpu_torch.models.pipeline import (find_structures,
+                                                       search_and_unbind)
 
 
 def _bench_opts(boxsize, n, **over):
@@ -134,8 +136,11 @@ def test_slice_keepfof_envelopes():
 
 
 @pytest.mark.parametrize("what", ["iSubSearch", "iSingleHalo", "baryons",
-                                  "mesh"])
+                                  "mesh", "pertype"])
 def test_unported_modes_raise(what):
+    """Both entry points refuse the modes not ported yet; per-type
+    properties (several particle types without a baryon search) concern
+    only find_structures."""
     pos = np.zeros((8, 3), np.float32)
     opt = _bench_opts(10.0, 8)
     kw = {}
@@ -146,11 +151,16 @@ def test_unported_modes_raise(what):
     elif what == "baryons":
         opt.iBaryonSearch = 1
         kw["ptype"] = np.array([C.DARKTYPE] * 4 + [0] * 4)
+    elif what == "pertype":
+        kw["ptype"] = np.array([C.DARKTYPE] * 4 + [4] * 4)
     else:
         kw["mesh"] = object()
+    args = (opt, pos, pos, np.ones(8, np.float32))
+    if what != "pertype":
+        with pytest.raises(NotImplementedError):
+            search_and_unbind(*args, boxsize=10.0, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        search_and_unbind(opt, pos, pos, np.ones(8, np.float32),
-                          boxsize=10.0, device="cpu", **kw)
+        find_structures(*args, boxsize=10.0, device="cpu", **kw)
 
 
 def test_non_periodic_box_matches_reference():

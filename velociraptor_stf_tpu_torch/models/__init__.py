@@ -1,2 +1,3 @@
 """Pipeline stages of the port: field search (``halos``), unbinding
-(``unbind``) and the search-and-unbind entry point (``pipeline``)."""
+(``unbind``), properties (``properties``) and the entry points
+``search_and_unbind`` and ``find_structures`` (``pipeline``)."""

@@ -29,17 +29,20 @@ caller's float dtype; only the potential kernel works in float32.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
-from ..ops import gravity_direct, segments as seg
+from ..ops import gravity, gravity_direct, segments as seg
 
 from velociraptor_stf_tpu.utils.config import POTREF, USYSANDPART, UnbindInfo
 
 CHUNK_ITERS = 4      # iterations between potential recomputes / compaction
 MAX_CHUNKS = 64      # iteration cap: MAX_CHUNKS * CHUNK_ITERS
+MAX_DIRECT = 1 << 20  # larger groups take the bucket tree (the reference's
+                      # ops/pallas_gravity.py MAX_DIRECT)
 
 
 @dataclass
@@ -54,24 +57,48 @@ class UnbindResult:
 
 def compute_potential(pos: torch.Tensor, mass: torch.Tensor,
                       pfof: torch.Tensor, num_groups: int, eps: float,
-                      G: float, boxsize: Optional[float] = None
-                      ) -> torch.Tensor:
+                      G: float, boxsize: Optional[float] = None,
+                      direct_cut: int = MAX_DIRECT) -> torch.Tensor:
     """(N,) potential energy W_i = m_i * Phi_i within each particle's
-    group (0 for untagged), by the exact direct sum of every group.
+    group (0 for untagged).
 
-    Groups above 2**20 members take the reference's bucket tree; here they
-    go through the direct kernel too (exact, O(n^2))."""
+    Groups of up to ``direct_cut`` members are summed exactly by the direct
+    kernel; larger ones take the bucket tree (``ops/gravity.py``), batched
+    by power-of-two size class with zero-mass copies of each group's last
+    member as padding, as the reference does (its cut is ``MAX_DIRECT`` on
+    a TPU and 4096 elsewhere).  The cut decides which groups are
+    approximated, so it is part of the result."""
     if boxsize:
         pos = seg.unwrap_positions(pos, pfof, boxsize, num_groups)
     perm = seg.sort_by_group(pfof)
     g_s = pfof[perm]
-    mass_s = mass[perm]
+    pos_s, mass_s = pos[perm], mass[perm]
     offsets = seg.group_offsets(g_s, num_groups)
-    phi = gravity_direct.potential_group_sorted(pos[perm], mass_s, g_s,
-                                                offsets, float(eps * eps))
-    w_s = ((-G) * phi).to(pos.dtype) * mass_s
+    sizes = offsets[1:] - offsets[:-1]
+    big = sizes > direct_cut
+    big[0] = False
+    big_ids = torch.nonzero(big).squeeze(1).tolist()
+    gid_direct = torch.where(big[g_s], 0, g_s) if big_ids else g_s
+    eps2 = float(eps * eps)
+    phi = gravity_direct.potential_group_sorted(pos_s, mass_s, gid_direct,
+                                                offsets, eps2)
+    w_s = ((-G) * phi).to(pos.dtype)
+    by_class: dict = {}
+    sizes_h = sizes.tolist() if big_ids else []
+    for g in big_ids:
+        by_class.setdefault(1 << (sizes_h[g] - 1).bit_length(), []).append(g)
+    for cpad, gs in sorted(by_class.items()):
+        gs = torch.tensor(gs, device=pos.device)
+        st, cnt = offsets[gs], sizes[gs]
+        k = torch.arange(cpad, device=pos.device)
+        idx = torch.minimum(st[:, None] + k[None, :], (st + cnt - 1)[:, None])
+        valid = k[None, :] < cnt[:, None]
+        wg = gravity.bucket_tree_potential_batch(
+            pos_s[idx], torch.where(valid, mass_s[idx], 0.0), eps2, G,
+            valid=valid)
+        w_s[idx[valid]] = wg[valid].to(w_s.dtype)
     W = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
-    W[perm] = w_s
+    W[perm] = w_s * mass_s
     return W
 
 
@@ -261,3 +288,26 @@ def _finalize(pfof: torch.Tensor, bound: torch.Tensor, W: torch.Tensor,
     pfof_new = gid_map[torch.where(bound, pfof, 0)]
     return UnbindResult(pfof=pfof_new, ngroups=ng_new, W=W, Efrac=Efrac,
                         bound=bound, gid_map=gid_map)
+
+
+def sort_by_binding_energy(vel: torch.Tensor, mass: torch.Tensor,
+                           pfof: torch.Tensor, W: torch.Tensor,
+                           num_groups: int, gcmvel: torch.Tensor,
+                           by_energy: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Reference SortAccordingtoBindingEnergy
+    (substructureproperties.cxx:4256; key switch on
+    ``Sort_by_binding_energy`` at :4308): the permutation ordering
+    particles by group, most bound first within each (by energy, or by
+    potential alone), and per group the index of the most bound particle
+    and of the potential minimum (n for an empty group)."""
+    ng1 = num_groups + 1
+    dv = vel - gcmvel[pfof]
+    E = 0.5 * mass * seg.sq3(dv) + W
+    tagged = pfof > 0
+    key = torch.where(tagged, E if by_energy else W, math.inf)
+    perm = seg.lexsort2(key, pfof)
+    mbp = seg.segment_argmin(torch.where(tagged, E, math.inf), pfof, ng1)
+    minpot = seg.segment_argmin(torch.where(tagged, W, math.inf), pfof, ng1)
+    return perm, mbp, minpot

@@ -33,6 +33,26 @@ def pad_class(x: int, lo: int = 1024, align: int = 1024) -> int:
     return k
 
 
+def sq3(d: torch.Tensor) -> torch.Tensor:
+    """|d|^2 over a last axis of size 3, summed x, y, z in order, as the
+    reference's float32 sums round."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + \
+        d[..., 2] * d[..., 2]
+
+
+def group_sizes(pfof: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """(num_groups+1,) int64 member count per group id (id 0 = untagged)."""
+    return torch.bincount(torch.clamp(pfof, 0, num_groups),
+                          minlength=num_groups + 1)
+
+
+def segment_count(mask: torch.Tensor, seg: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """(num_segments,) int64 number of True entries of ``mask`` per
+    segment."""
+    return torch.bincount(seg[mask], minlength=num_segments)
+
+
 def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
                 presorted: bool = False) -> torch.Tensor:
     """Per-segment sum along axis 0 (0 for an empty segment), each segment
@@ -64,6 +84,47 @@ def segment_mean(values: torch.Tensor, weights: torch.Tensor,
     return num / (den[:, None] if values.dim() > 1 else den)
 
 
+def segment_outer(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+                  seg: torch.Tensor, num_segments: int,
+                  presorted: bool = False) -> torch.Tensor:
+    """(num_segments, 3, 3) per-segment sum of w_i a_i (x) b_i, as nine
+    component sums in index order."""
+    if not presorted:
+        order = torch.argsort(seg, stable=True)
+        a, b, w, seg = a[order], b[order], w[order], seg[order]
+    cols = torch.stack([a[:, i] * b[:, j] * w for i in range(3)
+                        for j in range(3)], -1)
+    return segment_sum(cols, seg, num_segments,
+                       presorted=True).view(num_segments, 3, 3)
+
+
+def segment_cumsum(values: torch.Tensor, seg_sorted: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum within contiguous segments of the
+    non-decreasing ``seg_sorted`` (``offsets`` from ``group_offsets``).
+
+    The running total is kept in float64 and each segment's start is
+    subtracted before rounding back to the values' dtype, so every
+    segment's sums are those of its own elements to float64 accuracy,
+    whatever the length of the array before it."""
+    total = torch.cumsum(values.double(), 0)
+    starts = offsets[seg_sorted]
+    base = torch.where(starts > 0, total[torch.clamp_min(starts - 1, 0)],
+                       0.0)
+    return (total - base).to(values.dtype)
+
+
+def segment_max(values: torch.Tensor, seg: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment maximum (the dtype's lowest value for empty
+    segments); max does not depend on the order of the elements."""
+    low = (torch.iinfo(values.dtype).min if not values.is_floating_point()
+           else float("-inf"))
+    out = torch.full((num_segments,), low, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce_(0, seg, values, "amax")
+
+
 def segment_min(values: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Per-segment minimum (the dtype's maximum for empty segments)."""
@@ -72,6 +133,13 @@ def segment_min(values: torch.Tensor, seg: torch.Tensor,
     out = torch.full((num_segments,), big, dtype=values.dtype,
                      device=values.device)
     return out.scatter_reduce_(0, seg, values, "amin")
+
+
+def lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting by (``major``, ``minor``), ties in index order:
+    ``jnp.lexsort((minor, major))`` as two stable argsorts."""
+    order = torch.argsort(minor, stable=True)
+    return order[torch.argsort(major[order], stable=True)]
 
 
 def segment_argmin(values: torch.Tensor, seg: torch.Tensor,
