@@ -7,9 +7,18 @@ Builds the port's CUDA kernels from ``velociraptor_stf_tpu_torch/kernels/
 csrc`` and drives the port on the card, in phases:
 
 1. a CUDA device must be present (the script never falls back to the CPU);
+   the kernels are built, and each one's lane-arithmetic instructions per
+   pair are read from the library's SASS (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gives it: detect counts and sweep labels exactly
-   equal, the potential within rel 1e-4; times of both;
+   equal, the potential within rel 1e-4 (and on a small case at the edges
+   of its launch geometry, with eps2 = 0 and a coincident pair); times of
+   both, pairs tested and needed, and the bound: the larger of the bytes
+   over the memory rate and the needed pairs' operations over their
+   pipe's rate.  A FOF kernel needs the pairs of each row's 27 cells (of
+   the same 3DFOF group for the 6D sweep), at its SASS instructions per
+   pair over the issue rate; the potential needs sum s (s - 1) rsqrts on
+   the MUFU (and half that under the pair symmetry, printed beside it);
 3. ``search_and_unbind`` on the small oracle case of tests/test_oracles.py
    against the independent float64 oracle chain: the partition must be
    exact;
@@ -71,6 +80,23 @@ Iterate_cm_flag=0
 Binary_output=1
 """
 TREE_N = 1_200_000
+# Peak rates of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32 on
+# the CUDA cores, i.e. 132 SMs x 128 FP32 lanes x 2 (FMA) x 1.98 GHz, and
+# 3.35 TB/s of device memory.  At the same clock an SM's four schedulers
+# issue one 32-lane instruction each per clock (the FP32 pipe's 128 lanes),
+# and the MUFU (special function unit) evaluates 16 lanes per SM per clock.
+CLOCK_HZ = 1.98e9
+LANES_PER_S = 132 * 128 * CLOCK_HZ           # 3.35e13 lane-instructions/s
+MUFU_LANES_PER_S = 132 * 16 * CLOCK_HZ       # 4.18e12 rsqrt/s
+MEM_BYTES_PER_S = 3.35e12
+# each kernel's hot loop holds one of these per pair (a float compare in
+# the FOF kernels, the rsqrt in the potential)
+PAIR_OP = {"fof_detect": "FSETP", "fof_sweep3d": "FSETP",
+           "fof_sweep6d": "FSETP", "potential": "MUFU"}
+# SASS that is no lane arithmetic: loads and stores, branches and
+# convergence barriers; uniform-datapath instructions (U*) run once a warp
+NOT_LANE_ARITH = ("LD", "ST", "BRA", "BSSY", "BSYNC", "BAR", "EXIT", "NOP",
+                  "DEPBAR", "U")
 
 
 def log(msg: str) -> None:
@@ -83,6 +109,88 @@ def card_info() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_per_pair(lib: Path) -> dict:
+    """Lane-arithmetic SASS instructions per pair of each kernel, read from
+    the built library (``cuobjdump -sass``).  In the kernel's innermost
+    loop (a backward branch with none inside) with the most ``PAIR_OP``
+    instructions -- its unrolled scan -- every instruction that is not in
+    ``NOT_LANE_ARITH`` (``PAIR_OP`` itself excluded for the potential,
+    whose rsqrt goes to the MUFU), over the count of ``PAIR_OP``:
+    {kernel: (instructions per pair, the loop's instructions, pairs)}."""
+    import re
+    from collections import Counter
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or str(Path(home) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    kernel_of = {"fof_detect": "detect_kernel",
+                 "fof_sweep3d": "sweep3d_kernel",
+                 "fof_sweep6d": "sweep6d_kernel",
+                 "potential": "potential_kernel"}
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split(None, 1)[0]
+        key = next((k for k, v in kernel_of.items() if v in name), None)
+        if key is None:
+            continue
+        code = [(int(m[1], 16), m[2].split(".")[0], m[3])
+                for m in line.finditer(func)]
+        back = [(int(re.search(r"0x([0-9a-f]+)", a)[1], 16), at)
+                for at, op, a in code if op == "BRA" and "0x" in a]
+        back = [(t, at) for t, at in back if t < at]
+        inner = [(t, at) for t, at in back
+                 if not any(t <= t2 and a2 < at for t2, a2 in back
+                            if (t2, a2) != (t, at))]
+        best = None
+        for t, at in inner:
+            ops = Counter(op for a, op, _ in code if t <= a <= at)
+            if best is None or ops[PAIR_OP[key]] > best[PAIR_OP[key]]:
+                best = ops
+        pairs = best[PAIR_OP[key]] if best else 0
+        if pairs == 0:
+            raise AssertionError(f"SASS: no {PAIR_OP[key]} in a loop of "
+                                 f"{name}")
+        arith = sum(n for op, n in best.items()
+                    if op != "MUFU" and not op.startswith(NOT_LANE_ARITH))
+        out[key] = (arith / pairs, sum(best.values()), pairs)
+    if set(out) != set(PAIR_OP):
+        raise AssertionError(f"SASS: kernels found {sorted(out)}")
+    return out
+
+
+def stencil_pairs(cx, cr, ncells, grp=None) -> int:
+    """Pairs a cell-list FOF needs on the cell-sorted slots (x cell ``cx``,
+    ``cr`` = y cell * nz + z cell): the sum over rows of the slots in the 27
+    cells around the row's cell, the row included; with ``grp``, only rows
+    of a nonzero group and columns of the same group."""
+    import torch
+
+    nx, ny, nz = ncells
+    key = cx * (ny * nz) + cr
+    if grp is not None:
+        keep = grp > 0
+        key = grp[keep].long() * (nx * ny * nz) + key[keep]
+    cells, occ = torch.unique(key, return_counts=True)
+    base = cells - cells % (nx * ny * nz)
+    cell = cells % (nx * ny * nz)
+    x, y, z = cell // (ny * nz), cell // nz % ny, cell % nz
+    total = 0
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                qx, qy, qz = x + dx, y + dy, z + dz
+                inside = ((qx >= 0) & (qx < nx) & (qy >= 0) & (qy < ny) &
+                          (qz >= 0) & (qz < nz))
+                q = base + (qx * ny + qy) * nz + qz
+                at = torch.searchsorted(cells, q).clamp_(max=len(cells) - 1)
+                hit = inside & (cells[at] == q)
+                total += int((occ * torch.where(hit, occ[at], 0)).sum())
+    return total
 
 
 def bench_options(n: int, C, boxsize: float):
@@ -178,9 +286,10 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def check_kernels(torch, np, pos, vel, mass, opt, report):
+def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
     """Phase 2: every kernel against its plain version at the main path's
-    shapes on the 256^3 context."""
+    shapes on the 256^3 context; ``sass`` holds each kernel's instructions
+    per pair (``sass_per_pair``)."""
     from velociraptor_stf_tpu_torch.kernels import R_BLOCK
     from velociraptor_stf_tpu_torch.kernels import fof_sweep as KF
     from velociraptor_stf_tpu_torch.kernels import potential as KP
@@ -208,22 +317,50 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
         return int((per_block * windows[:, :, 1].long().sum(1)).sum())
 
     def entry(name, source, replaces, err, ms, plain_ms, rows,
-              plain_rows, ms_plain_rows, windows):
-        pairs = candidate_pairs(windows, rows)
+              plain_rows, ms_plain_rows, pairs, needed, bound_ops_ms,
+              nbytes, **extra):
+        """One kernel's report; the bound is the larger of the bytes the
+        call must move over the memory rate and ``bound_ops_ms``, the
+        operations of the pairs it needs over their pipe's rate."""
+        bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        bound_ms = max(bytes_ms, bound_ops_ms)
         report.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces, "launches": 0,
                        "max_abs_err": float(err), "ms": ms,
-                       "plain_ms": plain_ms, "rows": rows,
-                       "plain_rows": plain_rows,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": ("bytes" if bytes_ms > bound_ops_ms
+                                    else "operations"),
+                       "library_ms": None, "share_of_bound": bound_ms / ms,
+                       "rows": rows, "plain_rows": plain_rows,
                        "ms_plain_rows": ms_plain_rows,
-                       "candidate_pairs": pairs,
-                       "pairs_per_s": pairs / (ms * 1e-3)})
+                       "pairs_tested": pairs, "pairs_needed": needed,
+                       "pairs_per_s": pairs / (ms * 1e-3),
+                       "instr_per_pair": sass[name][0], **extra})
         log(f"kernel {name}: max_abs_err {err} kernel {ms:.3f} ms "
-            f"({rows} rows, {pairs} candidate pairs, "
-            f"{pairs / (ms * 1e-3):.4g}/s), plain {plain_ms:.3f} ms "
+            f"({rows} rows, {pairs} pairs tested, {needed} needed, "
+            f"{pairs / (ms * 1e-3):.4g}/s, {sass[name][0]:.4g} SASS "
+            f"lane-instructions per pair), bound {bound_ms:.3f} ms "
+            f"(share {bound_ms / ms:.3f}), plain {plain_ms:.3f} ms "
             f"({plain_rows} rows)")
 
+    def fof_entry(name, err, ms, pms, ctx, nbytes, grp=None):
+        """A FOF kernel: the pairs it needs are those of each row's 27
+        cells (of the same group for the 6D sweep), each at its SASS
+        instructions per pair over the issue rate."""
+        pairs = candidate_pairs(ctx.windows, ctx.ns)
+        needed = stencil_pairs(ctx.cx, ctx.cr, fof.grid.ncells, grp)
+        ops_ms = needed * sass[name][0] / LANES_PER_S * 1e3
+        entry(name, fof_src, FOF_REPLACES[name], err, ms, pms, ctx.ns,
+              ctx.ns, ms, pairs, needed, ops_ms, nbytes)
+
     fof_src = "velociraptor_stf_tpu_torch/kernels/csrc/fof_sweep.cu"
+    FOF_REPLACES = {
+        "fof_detect": "velociraptor_stf_tpu/ops/pallas_fof.py:613",
+        "fof_sweep3d": "velociraptor_stf_tpu/ops/pallas_fof.py:578",
+        "fof_sweep6d": "velociraptor_stf_tpu/ops/pallas_fof.py:680"}
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
     # detect: the full context, as linked_mask runs it
     got = KF.detect(ctx.pos, win, b2)
     want = KF.detect_ref(ctx.pos, win, KF.f32(b2))
@@ -235,8 +372,8 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
     ms = cuda_ms(torch, lambda: KF.detect(ctx.pos, ctx.windows, b2))
     pms = wall_ms(torch, lambda: KF.detect_ref(ctx.pos, ctx.windows,
                                                KF.f32(b2)))
-    entry("fof_detect", fof_src, "velociraptor_stf_tpu/ops/pallas_fof.py:613",
-          0, ms, pms, ctx.ns, ctx.ns, ms, ctx.windows)
+    fof_entry("fof_detect", 0, ms, pms, ctx,
+              nbytes(ctx.pos, ctx.windows, got))
 
     # sweep3d: the linked subset, first sweep of the fixed point
     keep, _ = fof.linked_mask(b3d)
@@ -252,9 +389,8 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
     ms = cuda_ms(torch, lambda: KF.sweep3d(sub.pos, lab, sub.windows, b2))
     pms = wall_ms(torch, lambda: KF.sweep3d_ref(sub.pos, lab, sub.windows,
                                                 KF.f32(b2)))
-    entry("fof_sweep3d", fof_src,
-          "velociraptor_stf_tpu/ops/pallas_fof.py:578", 0, ms, pms, sub.ns,
-          sub.ns, ms, sub.windows)
+    fof_entry("fof_sweep3d", 0, ms, pms, sub,
+              nbytes(sub.pos, lab, sub.windows, got))
 
     # sweep6d: the 3DFOF-tagged subset with the bench's velocity scale
     minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
@@ -278,9 +414,8 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
                                            c6.windows, inv_b2))
     pms = wall_ms(torch, lambda: KF.sweep6d_ref(
         c6.pos, vel6, rivs, grp, lab, c6.windows, KF.f32(inv_b2)))
-    entry("fof_sweep6d", fof_src,
-          "velociraptor_stf_tpu/ops/pallas_fof.py:680", 0, ms, pms, c6.ns,
-          c6.ns, ms, c6.windows)
+    fof_entry("fof_sweep6d", 0, ms, pms, c6,
+              nbytes(c6.pos, vel6, rivs, grp, lab, c6.windows, got), grp)
 
     # potential: the full box sorted by 6DFOF group -- untagged (gid 0)
     # blocks first, the last group at the array tail -- as compute_potential
@@ -296,13 +431,15 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
     gid_s = g_s.int().contiguous()
     pw = gravity_direct.block_window(g_s, offsets)
     eps2 = KP.f32(opt.uinfo.eps ** 2)
-    nb = pw.shape[0]
-    if int(pw[0, 0, 1]) != 0:
+    if bool(pw[:R_BLOCK].any()):
         raise AssertionError("potential: expected a gid-0 block first")
-    # the plain version runs on a row sample: the first (gid 0) and last
-    # (the array tail) blocks, some gid-0 blocks, and 1024 blocks spread
-    # over the tagged ones (each scans its groups' full windows)
-    has = (pw[:, 0, 1] > 0).cpu().numpy()
+    # the plain version runs on a row sample of R_BLOCK-row blocks: the
+    # first (gid 0) and last (the array tail) blocks, some gid-0 blocks,
+    # and 1024 blocks spread over the tagged ones (each scans its groups'
+    # full ranges)
+    span = KP.spans(pw, R_BLOCK)
+    nb = span.shape[0]
+    has = (span[:, 1] > span[:, 0]).cpu().numpy()
     tagged, empty = np.nonzero(has)[0], np.nonzero(~has)[0]
     blocks = np.unique(np.concatenate([
         np.arange(min(4, nb)), np.arange(max(nb - 4, 0), nb),
@@ -310,6 +447,8 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
         tagged[np.linspace(0, len(tagged) - 1, 1024).astype(np.int64)]]))
     blocks = torch.from_numpy(blocks).to(pos.device)
     got = KP.potential(pos_s, mass_s, gid_s, pw, eps2)
+    if not torch.equal(got, KP.potential(pos_s, mass_s, gid_s, pw, eps2)):
+        raise AssertionError("potential: two launches differ")
     want = KP.potential_ref(pos_s, mass_s, gid_s, pw, eps2, blocks=blocks)
     rows = (blocks[:, None] * R_BLOCK +
             torch.arange(R_BLOCK, device=pos.device)[None, :]).ravel()
@@ -323,18 +462,70 @@ def check_kernels(torch, np, pos, vel, mass, opt, report):
     if rel >= POT_RTOL or bool((g_r[~nz] != 0).any()):
         raise AssertionError(f"potential kernel disagrees: rel {rel}")
     log(f"potential: {int(nz.sum())} nonzero rows compared, max rel {rel}")
+    edge_rel = potential_edge_case(torch, pos.device)
+    log(f"potential edge case (eps2 = 0 coincident pair, gid-0 blocks, "
+        f"one-member and tail groups): max rel {edge_rel}")
     ms = cuda_ms(torch, lambda: KP.potential(pos_s, mass_s, gid_s, pw,
                                              eps2))
     sub_w = torch.zeros_like(pw)
-    sub_w[blocks] = pw[blocks]
+    sub_w[rows] = pw[rows]
     ms_sub = cuda_ms(torch, lambda: KP.potential(pos_s, mass_s, gid_s,
                                                  sub_w, eps2))
     pms = wall_ms(torch, lambda: KP.potential_ref(
         pos_s, mass_s, gid_s, pw, eps2, blocks=blocks))
+    # pairs needed: sum of s (s - 1) over the groups of the direct sum, one
+    # rsqrt each on the MUFU, and the loop's other lane instructions over
+    # the issue rate; this assumes no use of the symmetry r_ij = r_ji,
+    # under which the function needs half as many rsqrts ("symmetric")
+    sizes = torch.bincount(g_s[g_s > 0]).double()
+    needed = int((sizes * (sizes - 1)).sum())
+    ops_ms = max(needed / MUFU_LANES_PER_S,
+                 needed * sass["potential"][0] / LANES_PER_S) * 1e3
+    sym_ms = max(ops_ms / 2, nbytes(pos_s, mass_s, pw, got) /
+                 MEM_BYTES_PER_S * 1e3)
     entry("potential", "velociraptor_stf_tpu_torch/kernels/csrc/"
           "potential.cu", "velociraptor_stf_tpu/ops/pallas_gravity.py:40",
           float(err.max()), ms, pms, pos_s.shape[1], int(rows.shape[0]),
-          ms_sub, pw)
+          ms_sub, KP.pairs_tested(pw), needed, ops_ms,
+          nbytes(pos_s, mass_s, pw, got), pairs_needed_symmetric=needed // 2,
+          bound_ms_symmetric=sym_ms, share_of_bound_symmetric=sym_ms / ms)
+    log(f"kernel potential: under the symmetric count ({needed // 2} "
+        f"pairs) bound {sym_ms:.3f} ms, share {sym_ms / ms:.3f}")
+
+
+def potential_edge_case(torch, dev) -> float:
+    """The potential kernel at the edges of its launch geometry
+    (``kernels/potential.py::edge_case``: gid-0 runs and whole gid-0 blocks,
+    one- to three-member groups, groups straddling thread and block edges,
+    a coincident pair in the group at the array tail) against its plain
+    version, with eps2 = 0 (+inf must stay +inf) and eps2 > 0.  Exact zeros
+    on gid-0 rows, rel 1e-4 elsewhere; returns the largest rel error."""
+    from velociraptor_stf_tpu_torch.kernels import potential as KP
+    from velociraptor_stf_tpu_torch.ops import gravity_direct
+
+    pos, mass, g, offsets = KP.edge_case()
+    gt = g.to(dev)
+    args = (pos.T.contiguous().to(dev), mass.to(dev), gt.int(),
+            gravity_direct.block_window(gt, offsets.to(dev)))
+    worst = 0.0
+    for eps2 in (0.0, 1e-4):
+        got = KP.potential(*args, KP.f32(eps2)).double()
+        want = KP.potential_ref(*args, KP.f32(eps2)).double()
+        inf = torch.isinf(want)
+        if bool(inf.any()) != (eps2 == 0.0) or \
+                not torch.equal(got[inf], want[inf]):
+            raise AssertionError(f"potential edge case: +inf not kept "
+                                 f"(eps2 {eps2})")
+        zero = want == 0
+        if not bool((got[(gt == 0) | zero] == 0).all()):
+            raise AssertionError("potential edge case: a gid-0 or lone row "
+                                 "is not exactly 0")
+        nz = ~zero & ~inf
+        rel = float(((got - want)[nz] / want[nz]).abs().max())
+        if not rel < POT_RTOL:
+            raise AssertionError(f"potential edge case: rel {rel}")
+        worst = max(worst, rel)
+    return worst
 
 
 def check_catalog(np, res, n: int, minsize: int) -> None:
@@ -523,9 +714,9 @@ def check_cli_files(np, out: str, ng: int, npart: int, nedges: int) -> None:
 def cli_case(torch, np, dev, C, n: int) -> str:
     """Phase 6: the CLI as a user runs it, on a gadget snapshot, against
     find_structures on the same snapshot."""
-    from velociraptor_stf_tpu.io import gadget
-    from velociraptor_stf_tpu.io.synthetic import make_cosmo_mock
     from velociraptor_stf_tpu_torch import cli
+    from velociraptor_stf_tpu_torch.io import gadget
+    from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
     from velociraptor_stf_tpu_torch.models.pipeline import find_structures
 
     tmp = Path(tempfile.mkdtemp(prefix="vr_cli_"))
@@ -669,14 +860,14 @@ def main() -> int:
 
     import numpy as np
 
-    from velociraptor_stf_tpu.io.synthetic import make_cosmo_mock
-    from velociraptor_stf_tpu.utils import config as C
-    from velociraptor_stf_tpu.utils import units
-    from velociraptor_stf_tpu.validation import oracles
     from velociraptor_stf_tpu_torch import kernels
+    from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
     from velociraptor_stf_tpu_torch.kernels import _build
     from velociraptor_stf_tpu_torch.models.pipeline import (find_structures,
                                                            search_and_unbind)
+    from velociraptor_stf_tpu_torch.utils import config as C
+    from velociraptor_stf_tpu_torch.utils import units
+    from velociraptor_stf_tpu_torch.validation import oracles
 
     dev = torch.device("cuda")
     card = card_info()
@@ -687,6 +878,10 @@ def main() -> int:
     lib = _build.build()
     log(f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     log(lib.with_suffix(".log").read_text().strip())
+    sass = sass_per_pair(lib)
+    for name, (per_pair, loop, pairs) in sass.items():
+        log(f"SASS {name}: hot loop of {loop} instructions for {pairs} "
+            f"pairs, {per_pair:.4g} lane-arithmetic instructions per pair")
 
     n = args.n
     t0 = time.perf_counter()
@@ -701,7 +896,7 @@ def main() -> int:
 
     report: list = []
     t0 = time.perf_counter()
-    check_kernels(torch, np, tpos, tvel, tmass, opt, report)
+    check_kernels(torch, np, tpos, tvel, tmass, opt, sass, report)
     log(f"phase 2 kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the small oracle case, exact partition

@@ -21,6 +21,7 @@ from velociraptor_stf_tpu.models import pipeline as JP
 from velociraptor_stf_tpu.utils import config as C
 
 from velociraptor_stf_tpu_torch import cli as tcli
+from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import pipeline as TP
 
 from test_torch_properties import (CFG, assert_props_match, newton_settled,
@@ -64,8 +65,9 @@ def test_find_structures_matches_reference(mock, case):
     pos, vel, mass = mock
     want = JP.find_structures(slice_options(BOX, N, **CASES[case]), pos,
                               vel, mass, boxsize=BOX)
-    got = TP.find_structures(slice_options(BOX, N, **CASES[case]), pos,
-                             vel, mass, boxsize=BOX, device="cpu")
+    got = TP.find_structures(
+        convert.options(slice_options(BOX, N, **CASES[case])), pos, vel, mass,
+        boxsize=BOX, device="cpu")
     assert got.ngroups == want.ngroups > 0
     np.testing.assert_array_equal(got.pfof, np.asarray(want.pfof))
     _equal_or_none(got.pfof3d, want.pfof3d, "pfof3d")
@@ -137,7 +139,8 @@ def cli_runs(snapshot):
             os.environ.pop("VR_MESH")
         else:
             os.environ["VR_MESH"] = old
-    got = tcli.run(_cli_options(cfg, snap, str(d / "torch")), device="cpu")
+    got = tcli.run(convert.options(_cli_options(cfg, snap, str(d / "torch"))),
+                   device="cpu")
     return d, want, got
 
 

@@ -70,8 +70,8 @@ def _jax_search(opt, pos, vel, mass, boxsize):
 
 
 def _port_search(opt, pos, vel, mass, boxsize):
-    return thalos.search_full_set(opt, _t(pos), _t(vel), _t(mass),
-                                  boxsize=boxsize)
+    return thalos.search_full_set(convert.options(opt), _t(pos), _t(vel),
+                                  _t(mass), boxsize=boxsize)
 
 
 def test_context_matches_reference():
@@ -228,7 +228,8 @@ def test_fof6d_matches_reference(mock_searches, mode):
     fof6 = TF.SweepFof(_t(pos), _t(vel), boxsize, b3d).subset(pfof3 > 0)
     pfof6, ng6 = fof6.fof6d(b3d * opt.ellhalo6dxfac, pfof3, vs,
                             opt.HaloMinSize)
-    fed = thalos.finish_6d(opt, pfof3, want.ngroups3d, pfof6, ng6, vs)
+    fed = thalos.finish_6d(convert.options(opt), pfof3, want.ngroups3d,
+                           pfof6, ng6, vs)
     assert fed.ngroups == want.ngroups
     np.testing.assert_array_equal(fed.pfof.numpy(), np.asarray(want.pfof))
 

@@ -205,7 +205,8 @@ def test_bound_masks_match_reference(big_group_mock):
     W = TU.compute_potential(_t(pos), _t(mass), convert.group_ids(pfof), ng,
                              uinfo.eps, G, boxsize=boxsize, direct_cut=CUT)
     got = TU.check_unbound_groups(_t(pos), _t(vel), _t(mass),
-                                  convert.group_ids(pfof), ng, uinfo, G,
+                                  convert.group_ids(pfof), ng,
+                                  convert.unbind_info(uinfo), G,
                                   boxsize=boxsize, min_size=20, W=W)
     np.testing.assert_array_equal(got.bound.numpy(), np.asarray(want.bound))
     np.testing.assert_array_equal(got.pfof.numpy(), np.asarray(want.pfof))

@@ -1,13 +1,25 @@
-"""The PyTorch port imports and runs without JAX, and without nvcc.
+"""The PyTorch port imports and runs without JAX, without the JAX package
+and without nvcc.
 
-A subprocess is needed: tests/conftest.py imports jax into this process."""
+A subprocess is needed: tests/conftest.py imports jax into this process.
+"""
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+# after a run: neither jax nor any module of the JAX package was imported
+NO_JAX_PACKAGE = """
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "velociraptor_stf_tpu"
+                or m.startswith("velociraptor_stf_tpu."))
+assert not leaked, leaked
+"""
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -26,9 +38,9 @@ def test_port_runs_slice_without_jax():
     code = """
 import sys
 import numpy as np
-from velociraptor_stf_tpu.io.synthetic import make_cosmo_mock
-from velociraptor_stf_tpu.utils import config as C
+from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
 from velociraptor_stf_tpu_torch.models.pipeline import search_and_unbind
+from velociraptor_stf_tpu_torch.utils import config as C
 
 n, box = 4096, 20.0
 pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=6, seed=3)
@@ -48,7 +60,7 @@ assert res.ngroups > 0, res.ngroups
 assert res.pfof.shape == (len(pos),)
 assert np.isfinite(res.W.numpy()).all()
 assert set(res.timings) == {"fof", "unbind"}
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+""" + NO_JAX_PACKAGE + """
 print("OK", res.ngroups)
 """
     proc = _run(code)
@@ -69,7 +81,7 @@ from velociraptor_stf_tpu_torch import cli
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",
                                  "fof_sweep6d", "potential"}
-assert "jax" not in sys.modules
+""" + NO_JAX_PACKAGE + """
 print("OK")
 """
     proc = _run(code)
@@ -96,9 +108,9 @@ def test_port_writes_catalog_without_jax():
     code = """
 import sys, tempfile, os
 import numpy as np
-from velociraptor_stf_tpu.io import gadget
-from velociraptor_stf_tpu.io.synthetic import make_cosmo_mock
 from velociraptor_stf_tpu_torch import cli
+from velociraptor_stf_tpu_torch.io import gadget
+from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
 
 n, box = 4096, 20.0
 pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=6, seed=3)
@@ -116,9 +128,64 @@ assert cli.main(["-C", cfg, "-i", snap, "-o", out, "--device", "cpu"]) == 0
 for ext in (".properties", ".catalog_groups", ".catalog_particles",
             ".hierarchy", ".profiles"):
     assert os.path.getsize(out + ext) > 0, ext
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+""" + NO_JAX_PACKAGE + """
 print("OK")
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def _imports(path: Path, root: Path = REPO):
+    """(line, module) of every import statement in the file at ``path``,
+    relative imports resolved against the file's package under ``root``;
+    ``from a import b`` gives both ``a`` and ``a.b``."""
+    package = list(path.relative_to(root).parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else []
+            mod = base + ([node.module] if node.module else [])
+            if mod:
+                yield node.lineno, ".".join(mod)
+            for alias in node.names:
+                yield node.lineno, ".".join(mod + [alias.name])
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("jax", "jaxlib", "velociraptor_stf_tpu")
+
+
+@pytest.mark.parametrize("tree", ["velociraptor_stf_tpu_torch",
+                                  "chip_smoke.py"])
+def test_port_imports_nothing_of_jax_package(tree):
+    """An ast scan of every module of the port and of chip_smoke.py: no
+    import of jax or of the JAX package, at any depth of the code."""
+    top = REPO / tree
+    files = sorted(top.rglob("*.py")) if top.is_dir() else [top]
+    assert files
+    bad = [f"{f.relative_to(REPO)}:{line}: {mod}" for f in files
+           for line, mod in _imports(f) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_import_scan_catches_jax_imports(tmp_path):
+    """The scan sees absolute, dotted, nested and relative imports that
+    climb out of the port."""
+    src = tmp_path / "velociraptor_stf_tpu_torch" / "mod.py"
+    src.parent.mkdir()
+    src.write_text("import os\n"
+                   "from . import kernels\n"
+                   "from .. import velociraptor_stf_tpu\n"
+                   "def f():\n"
+                   "    import jax.numpy as jnp\n"
+                   "    from velociraptor_stf_tpu.utils import config\n"
+                   "    import velociraptor_stf_tpu.io.gadget\n")
+    found = [mod for _, mod in _imports(src, tmp_path) if _forbidden(mod)]
+    assert found == ["velociraptor_stf_tpu", "jax.numpy",
+                     "velociraptor_stf_tpu.utils",
+                     "velociraptor_stf_tpu.utils.config",
+                     "velociraptor_stf_tpu.io.gadget"]

@@ -10,6 +10,9 @@ This file imports no jax, so the GPU tests run on a machine without it:
 the ``gpu`` tests skip.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ import torch
 from velociraptor_stf_tpu_torch.kernels import R_BLOCK
 from velociraptor_stf_tpu_torch.kernels import fof_sweep as KF
 from velociraptor_stf_tpu_torch.kernels import potential as KP
+from velociraptor_stf_tpu_torch.kernels._common import pair_d2, window_tiles
 from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
 from velociraptor_stf_tpu_torch.ops import gravity_direct
 from velociraptor_stf_tpu_torch.ops import segments as seg
@@ -88,7 +92,7 @@ def test_plain_potential_matches_brute_force():
     pos, mass, g = _grouped()
     offsets = seg.group_offsets(g, int(g.max()))
     win = gravity_direct.block_window(g, offsets)
-    assert int(win[0, 0, 1]) == 0             # a gid-0 block: no window
+    assert not win[g == 0].any()              # gid-0 rows: no window
     eps2 = KP.f32(1e-4)
     got = KP.potential_ref(pos.T.contiguous(), mass, g.int(), win, eps2)
     p = pos.double()
@@ -99,6 +103,175 @@ def test_plain_potential_matches_brute_force():
     assert torch.equal(got[g == 0], torch.zeros(int((g == 0).sum())))
     nz = want != 0
     assert float(((got.double() - want)[nz] / want[nz]).abs().max()) < 1e-5
+
+
+def _plain_before(pos, mass, g, offsets, eps2):
+    """The plain version over the per-block windows of the earlier
+    kernel: [offsets[gmin], offsets[gmax + 1]) of each R_BLOCK-row block's
+    nonzero gids."""
+    ns = len(g)
+    nb = -(-ns // R_BLOCK)
+    gb = torch.zeros(nb * R_BLOCK, dtype=torch.int64)
+    gb[:ns] = g
+    gb = gb.view(nb, R_BLOCK)
+    gmin = torch.where(gb > 0, gb, 2**62).amin(1)
+    gmax = gb.amax(1)
+    last = offsets.shape[0] - 1
+    s = offsets[gmin.clamp(max=last)]
+    e = offsets[(gmax + 1).clamp(max=last)]
+    has = gmax > 0
+    win = torch.stack([torch.where(has, s, 0), torch.where(has, e - s, 0)],
+                      -1).view(nb, 1, 2).int()
+    p = pos.T.contiguous()
+    acc = torch.zeros(ns, dtype=torch.float64)
+    gi = g.int()
+    for rows, rvalid, cols, cvalid in window_tiles(win, ns):
+        gr = gi[rows][:, :, None]
+        hit = ((gr == gi[cols][:, None, :]) & (gr > 0) &
+               (rows[:, :, None] != cols[:, None, :]) & cvalid[:, None, :])
+        term = mass[cols][:, None, :] * torch.rsqrt(
+            pair_d2(p, rows, cols) + eps2)
+        acc[rows[rvalid]] += torch.where(hit, term, 0.0).sum(-1)[
+            rvalid].double()
+    return acc.float()
+
+
+@pytest.mark.parametrize("rows", ["block", "thread"])
+def test_potential_spans_cover_needed_pairs(rows):
+    """The column span of every row block (and of every thread's rows)
+    holds every needed pair (same gid > 0, i != j) of its rows, and no
+    row of gid 0 widens it."""
+    pos, mass, g, offsets = KP.edge_case()
+    win = gravity_direct.block_window(g, offsets)
+    per = KP.ROWS_PER_BLOCK if rows == "block" else KP.ROWS_PER_THREAD
+    sp = KP.spans(win, per)
+    assert sp.shape == (-(-len(g) // per), 2)
+    gi = g.numpy()
+    for i in np.nonzero(gi > 0)[0]:
+        lo, hi = (int(v) for v in sp[i // per])
+        partners = np.nonzero(gi == gi[i])[0]
+        assert lo <= partners.min() and partners.max() < hi, i
+        assert tuple(win[i].tolist()) == (partners.min(), partners.max() + 1)
+    # blocks of gid-0 rows only scan nothing; spans end at groups' ends
+    only0 = [b for b in range(sp.shape[0])
+             if not (gi[b * per:(b + 1) * per] > 0).any()]
+    assert only0 and not sp[only0].any()
+    ends = set(offsets.tolist())
+    assert all(int(h) in ends for lo, h in sp.tolist() if h > lo)
+    # pairs the kernel evaluates: each thread's rows against its span
+    assert KP.pairs_tested(win) >= int(sum(
+        s * (s - 1) for s in np.bincount(gi[gi > 0])))
+
+
+@pytest.mark.parametrize("chunks", ["whole", "one tile"])
+def test_potential_work_items_tile_spans(monkeypatch, chunks):
+    """The work items cut each row block's span into chunks of whole tiles,
+    in order, without gap or overlap; an empty span keeps one empty item.
+    At the real sizes this case's spans are under one chunk each."""
+    if chunks == "one tile":
+        monkeypatch.setattr(KP, "MIN_CHUNK", KP.TILE)
+    pos, mass, g, offsets = KP.edge_case()
+    win = gravity_direct.block_window(g, offsets)
+    items, first = KP.work_items(win)
+    sp = KP.spans(win, KP.ROWS_PER_BLOCK)
+    assert items.dtype == first.dtype == torch.int32
+    assert first[0] == 0 and first[-1] == items.shape[0]
+    assert (first[1:] > first[:-1]).all()
+    split = False
+    for b in range(sp.shape[0]):
+        its = items[int(first[b]):int(first[b + 1])].long()
+        assert (its[:, 0] == b).all() and (its[:, 3] == 0).all()
+        assert int(its[0, 1]) == int(sp[b, 0]) and \
+            int(its[-1, 2]) == int(sp[b, 1])
+        assert torch.equal(its[1:, 1], its[:-1, 2])
+        assert ((its[:-1, 2] - its[:-1, 1]) % KP.TILE == 0).all()
+        split |= its.shape[0] > 1
+    assert split == (chunks == "one tile")
+
+
+@pytest.mark.parametrize("eps2", [1e-4, 0.0])
+def test_plain_potential_new_windows_equal_before(eps2):
+    """The plain version on the row windows equals the plain version on
+    the earlier per-block windows (rel 1e-6; +inf where coincident)."""
+    pos, mass, g, offsets = KP.edge_case()
+    win = gravity_direct.block_window(g, offsets)
+    got = KP.potential_ref(pos.T.contiguous(), mass, g.int(), win,
+                           KP.f32(eps2)).double()
+    want = _plain_before(pos, mass, g, offsets, KP.f32(eps2)).double()
+    assert torch.equal(got[g == 0], torch.zeros(int((g == 0).sum()),
+                                                dtype=torch.float64))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert bool(inf.any()) == (eps2 == 0.0)
+    nz = (want != 0) & ~inf
+    assert float(((got - want)[nz] / want[nz]).abs().max()) < 1e-6
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("groups", [False, True])
+def test_stencil_pairs_count_each_rows_27_cells(groups):
+    """chip_smoke.py's pairs needed by the FOF kernels: for every row, the
+    slots of the 27 cells around its cell (itself included), of the same
+    nonzero group when groups are given -- against brute force."""
+    rng = np.random.default_rng(6)
+    pos = np.vstack([rng.normal(3.0, 0.3, (600, 3)),
+                     rng.uniform(0, 10, (600, 3))]).astype(np.float32)
+    ctx, grid = TF.build_fof_ctx(torch.from_numpy(pos), None, 0.4)
+    grp = (torch.from_numpy(rng.integers(0, 4, ctx.ns).astype(np.int32))
+           if groups else None)
+    got = _chip_smoke().stencil_pairs(ctx.cx, ctx.cr, grid.ncells, grp)
+    nz = grid.ncells[2]
+    c = torch.stack([ctx.cx, ctx.cr // nz, ctx.cr % nz], 1)
+    near = ((c[:, None, :] - c[None, :, :]).abs() <= 1).all(-1)
+    if groups:
+        near &= (grp[:, None] == grp[None, :]) & (grp[:, None] > 0)
+    assert got == int(near.sum()) > ctx.ns // 2
+    # the kernels' windows hold every such pair
+    assert got <= int(sum(int(ctx.windows[b, :, 1].sum()) *
+                          min(R_BLOCK, ctx.ns - b * R_BLOCK)
+                          for b in range(ctx.windows.shape[0])))
+
+
+_SASS = """
+        Function : _ZN12_GLOBAL__N_113detect_kernelEPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [UR4] ;
+        /*0020*/                   FADD R8, R4, -R9 ;
+        /*0030*/                   FMUL R8, R8, R8 ;
+        /*0040*/                   FSETP.GTU.AND P0, PT, R8, UR5, PT ;
+        /*0050*/                   UIADD3 UR4, UR4, 0x10, URZ ;
+        /*0060*/              @!P0 IADD3 R2, R2, 0x1, RZ ;
+        /*0070*/                   FSETP.GTU.AND P1, PT, R8, UR6, PT ;
+        /*0080*/                @P1 BRA 0x10 ;
+        /*0090*/                   FSETP.GTU.AND P0, PT, R8, UR5, PT ;
+        /*00a0*/                @P0 BRA 0x90 ;
+        /*00b0*/                @P2 BRA 0x0 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_per_pair_reads_the_innermost_scan(monkeypatch):
+    """chip_smoke.py's instruction count per pair: the innermost loop with
+    the most pair compares, its lane arithmetic (no loads, branches or
+    uniform-datapath instructions) over its compares."""
+    cs = _chip_smoke()
+    sass = _SASS + "".join(_SASS.replace("detect_kernel", k).replace(
+        "FSETP", "MUFU" if k == "potential_kernel" else "FSETP")
+        for k in ("sweep3d_kernel", "sweep6d_kernel", "potential_kernel"))
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+    got = cs.sass_per_pair(Path("lib.so"))
+    # loop 0x10-0x80: FADD, FMUL, 2 FSETP, IADD3 (MUFU not counted)
+    assert got["fof_detect"] == (2.5, 8, 2)
+    assert got["fof_sweep6d"] == (2.5, 8, 2)
+    assert got["potential"] == (1.5, 8, 2)
 
 
 def test_wrappers_reject_bad_arguments():
@@ -161,6 +334,23 @@ def test_cuda_potential_matches_plain(cuda):
         nz = want != 0
         assert torch.equal(got[~nz], want[~nz])
         assert float(((got - want)[nz] / want[nz]).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps2", [0.0, 1e-4])
+def test_cuda_potential_edge_case_matches_plain(cuda, eps2):
+    """The launch geometry's edges on the card: exact zeros on gid-0 rows,
+    +inf kept at eps2 = 0, rel 1e-4 elsewhere."""
+    pos, mass, g, offsets = KP.edge_case()
+    args = (pos.T.contiguous().to(cuda), mass.to(cuda), g.int().to(cuda),
+            gravity_direct.block_window(g, offsets).to(cuda))
+    got = KP.potential(*args, KP.f32(eps2)).double()
+    want = KP.potential_ref(*args, KP.f32(eps2)).double()
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin], want[~fin])
+    nz = (want != 0) & fin
+    assert torch.equal(got[want == 0], want[want == 0])
+    assert float(((got - want)[nz] / want[nz]).abs().max()) < 1e-4
 
 
 @pytest.mark.gpu

@@ -155,7 +155,7 @@ def test_property_bundle_matches_reference(searched, ref, iterate,
     want = JP.property_bundle(opt, jnp.asarray(pos), jnp.asarray(vel),
                               jnp.asarray(mass), jnp.asarray(pfof), ng,
                               W=jnp.asarray(W), boxsize=box)
-    got = TP.property_bundle(opt, torch.from_numpy(pos),
+    got = TP.property_bundle(convert.options(opt), torch.from_numpy(pos),
                              torch.from_numpy(vel), torch.from_numpy(mass),
                              convert.group_ids(pfof), ng,
                              W=convert.potential(W), boxsize=box)
@@ -222,7 +222,7 @@ def test_stage_functions_match_reference_in_any_order(searched):
 def test_pertype_not_ported(searched):
     pos, vel, mass, pfof, ng, W, boxsize = searched
     with pytest.raises(NotImplementedError):
-        TP.property_bundle(slice_options(boxsize, len(pos)),
+        TP.property_bundle(convert.options(slice_options(boxsize, len(pos))),
                            torch.from_numpy(pos), torch.from_numpy(vel),
                            torch.from_numpy(mass), convert.group_ids(pfof),
                            ng, pertype=True)

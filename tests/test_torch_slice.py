@@ -18,6 +18,7 @@ from velociraptor_stf_tpu.utils import config as C
 from velociraptor_stf_tpu.utils import units
 from velociraptor_stf_tpu.validation import oracles
 
+from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models.pipeline import (find_structures,
                                                        search_and_unbind)
 
@@ -42,6 +43,12 @@ def _bench_opts(boxsize, n, **over):
     return opt
 
 
+
+def _port_opts(boxsize, n, **over):
+    """The same options as the port's ``Options``."""
+    return convert.options(_bench_opts(boxsize, n, **over))
+
+
 def _reference_slice(opt, pos, vel, mass, boxsize):
     """The JAX package's metric stages: search_full_set, then the field
     unbind as find_structures calls it."""
@@ -61,7 +68,7 @@ def test_slice_matches_reference_stages():
     pos, vel, mass = make_cosmo_mock(n, boxsize=boxsize, nhalos=20, seed=7)
     fres, ures = _reference_slice(_bench_opts(boxsize, n), pos, vel, mass,
                                   boxsize)
-    res = search_and_unbind(_bench_opts(boxsize, n), pos, vel, mass,
+    res = search_and_unbind(_port_opts(boxsize, n), pos, vel, mass,
                             boxsize=boxsize, device="cpu")
     np.testing.assert_array_equal(res.pfof3d.numpy(),
                                   np.asarray(fres.pfof3d))
@@ -109,7 +116,7 @@ def test_slice_matches_f64_oracle_chain():
     boxsize = 25.0
     n = 12 ** 3 * 8
     pos, vel, mass = make_cosmo_mock(n, boxsize=boxsize, nhalos=16, seed=11)
-    res = search_and_unbind(_bench_opts(boxsize, n), pos, vel, mass,
+    res = search_and_unbind(_port_opts(boxsize, n), pos, vel, mass,
                             boxsize=boxsize, device="cpu")
     want, ng_want = _oracle_chain(pos, vel, mass, _bench_opts(boxsize, n),
                                   boxsize)
@@ -127,7 +134,7 @@ def test_slice_keepfof_envelopes():
     assert opt.iBoundHalos == 0
     want = jhalos.search_full_set(opt, jnp.asarray(pos), jnp.asarray(vel),
                                   jnp.asarray(mass), boxsize=boxsize)
-    res = search_and_unbind(_bench_opts(boxsize, n, iKeepFOF=1), pos, vel,
+    res = search_and_unbind(_port_opts(boxsize, n, iKeepFOF=1), pos, vel,
                             mass, boxsize=boxsize, device="cpu")
     assert want.num3dfof > 0
     assert res.ngroups == want.ngroups
@@ -155,7 +162,7 @@ def test_unported_modes_raise(what):
         kw["ptype"] = np.array([C.DARKTYPE] * 4 + [4] * 4)
     else:
         kw["mesh"] = object()
-    args = (opt, pos, pos, np.ones(8, np.float32))
+    args = (convert.options(opt), pos, pos, np.ones(8, np.float32))
     if what != "pertype":
         with pytest.raises(NotImplementedError):
             search_and_unbind(*args, boxsize=10.0, device="cpu", **kw)
@@ -172,7 +179,7 @@ def test_non_periodic_box_matches_reference():
     n = len(pos)
     fres, ures = _reference_slice(_bench_opts(20.0, n), pos, vel, mass,
                                   None)
-    res = search_and_unbind(_bench_opts(20.0, n), pos, vel, mass,
+    res = search_and_unbind(_port_opts(20.0, n), pos, vel, mass,
                             boxsize=None, device="cpu")
     assert res.ngroups == ures.ngroups > 0
     np.testing.assert_array_equal(res.pfof.numpy(), np.asarray(ures.pfof))
@@ -183,7 +190,7 @@ def test_non_periodic_box_matches_reference():
 def test_slice_without_groups(n, boxsize):
     """Sparse uniform points: no group, nothing to unbind."""
     pos = np.random.default_rng(n).uniform(0, 10, (n, 3)).astype(np.float32)
-    res = search_and_unbind(_bench_opts(10.0, 3000), pos, pos,
+    res = search_and_unbind(_port_opts(10.0, 3000), pos, pos,
                             np.ones(n, np.float32), boxsize=boxsize,
                             device="cpu")
     assert res.ngroups == 0 and res.W is None

@@ -178,7 +178,8 @@ def _compare(pos, vel, mass, pfof, ng, uinfo, min_size=20, boxsize=None,
         jnp.asarray(pfof, jnp.int32), ng, uinfo, G, boxsize=boxsize,
         min_size=min_size, W=jnp.asarray(W))
     got = TU.check_unbound_groups(_t(pos), _t(vel), _t(mass), _t(pfof), ng,
-                                  uinfo, G, boxsize=boxsize,
+                                  convert.unbind_info(uinfo), G,
+                                  boxsize=boxsize,
                                   min_size=min_size, W=convert.potential(W))
     np.testing.assert_array_equal(got.bound.numpy(), np.asarray(want.bound))
     np.testing.assert_array_equal(got.pfof.numpy(), np.asarray(want.pfof))
@@ -342,7 +343,7 @@ def test_unbind_matches_oracle():
     uinfo = UnbindInfo(unbindflag=1, Eratio=1.0, eps=0.01)
     res = TU.check_unbound_groups(_t(pos), _t(vel), _t(mass),
                                   torch.ones(n_b + n_u, dtype=torch.int64), 1,
-                                  uinfo, G, min_size=20)
+                                  convert.unbind_info(uinfo), G, min_size=20)
     bound = res.bound.numpy()
     want = oracles.unbind_oracle(pos, vel, mass, uinfo.eps, G, Eratio=1.0,
                                  maxunbindfrac=uinfo.maxunbindfrac,

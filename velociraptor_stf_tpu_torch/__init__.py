@@ -6,9 +6,11 @@ unbinding (``models.pipeline.search_and_unbind``) -- with every Pallas TPU
 kernel of that path rewritten as a hand-written CUDA kernel for Hopper
 (``kernels/csrc``), and the halo catalog on top of it: properties and
 spherical overdensities (``models.pipeline.find_structures``) and the
-command line (``python -m velociraptor_stf_tpu_torch.cli``).  It reuses the
-reference's jax-free modules (options and config parser, cosmology, snapshot
-readers, catalog writers, mocks, float64 oracles) and never imports jax.
+command line (``python -m velociraptor_stf_tpu_torch.cli``).  It keeps its
+own copies of the host modules it needs (options and config parser,
+cosmology, counters and timer in ``utils``; snapshot readers, catalog
+writers and mocks in ``io``; float64 oracles in ``validation``) and imports
+neither jax nor anything of the JAX package.
 
 Importing the package loads nothing heavy: the CUDA library is compiled on
 the first kernel launch on a CUDA tensor.

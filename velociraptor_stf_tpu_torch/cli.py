@@ -7,7 +7,7 @@
 The same flags and config checks as the reference (reference ``main()`` /
 ``GetArgs``, main.cxx:20, ui.cxx:9); the search runs on ``--device``
 (default ``cuda``, which needs a card: the run never falls back to the CPU)
-and the catalogs go through the reference's writers (``io/writers.py``).
+and the catalogs go through the port's writers (``io/writers.py``).
 A multi-device mesh and the jax profiler trace are not ported.
 """
 
@@ -22,13 +22,12 @@ import sys
 import numpy as np
 import torch
 
+from .io import gadget as gadget_io
+from .io import writers
 from .models import pipeline, unbind as unbind_mod
-
-from velociraptor_stf_tpu.io import gadget as gadget_io
-from velociraptor_stf_tpu.io import writers
-from velociraptor_stf_tpu.utils import config as C
-from velociraptor_stf_tpu.utils import units
-from velociraptor_stf_tpu.utils.timing import PhaseTimer
+from .utils import config as C
+from .utils import units
+from .utils.timing import PhaseTimer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def read_snapshot(opt: C.Options):
-    """Read the snapshot with the reference's numpy readers; returns (pos,
+    """Read the snapshot with the port's numpy readers; returns (pos,
     vel, pids, ptype, mass, boxsize, extras) in internal units (reference
     ReadData io.cxx:73).  The HDF readers need h5py only when asked for."""
     want_types = None
@@ -83,7 +82,7 @@ def read_snapshot(opt: C.Options):
         opt.h = hdr.hubble_param or opt.h
         ntot = hdr.ntotal
     elif opt.inputtype == C.IOHDF:
-        from velociraptor_stf_tpu.io import hdf as hdf_io
+        from .io import hdf as hdf_io
 
         hdr, pos, vel, pids, ptype, mass, extras = hdf_io.read_hdf(
             opt.fname, parttypes=want_types,
@@ -98,13 +97,13 @@ def read_snapshot(opt: C.Options):
         opt.h = hdr.hubble_param or opt.h
         ntot = int(hdr.npart_total.sum()) or len(pos)
     elif opt.inputtype == C.IOTIPSY:
-        from velociraptor_stf_tpu.io import tipsy as tipsy_io
+        from .io import tipsy as tipsy_io
 
         hdr, pos, vel, pids, ptype, mass = tipsy_io.read_tipsy(opt.fname)
         boxsize = opt.p
         ntot = len(pos)
     elif opt.inputtype == C.IORAMSES:
-        from velociraptor_stf_tpu.io import ramses as ramses_io
+        from .io import ramses as ramses_io
 
         # snapshot directory; the snapshot number from its info file or
         # trailing digits (reference -i dir + ramsessnapname,
@@ -130,7 +129,7 @@ def read_snapshot(opt: C.Options):
                 np.abs(v).max() > 0 for v in extras.values() if len(v)):
             extras = None
     elif opt.inputtype == C.IONCHILADA:
-        from velociraptor_stf_tpu.io import nchilada as nch_io
+        from .io import nchilada as nch_io
 
         hdr, pos, vel, pids, ptype, mass = nch_io.read_nchilada(
             opt.fname, parttypes=want_types)

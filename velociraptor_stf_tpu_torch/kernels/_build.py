@@ -1,14 +1,19 @@
 """Build ``csrc/*.cu`` with nvcc into one shared library and load it.
 
 The library has a plain C interface (no PyTorch headers), so nvcc builds it
-in seconds; it is bound with ``ctypes``.  The output goes to
+in seconds; it is bound with ``ctypes``.  One nvcc per source, all started
+together, then one link.  The output goes to
 ``build/velociraptor_stf_tpu_torch/`` at the root of the checkout, named by
-a hash of the sources and flags, so an unchanged tree never rebuilds.
+a hash of the sources and flags, so an unchanged tree never rebuilds.  The
+potential kernel's launch geometry comes from ``potential.py`` as ``-D``
+defines (``defines``).
 
 Flags: ``sm_90a`` (Hopper), and ``-fmad=false`` so that nvcc does not
 contract ``a*b + c`` into an FMA -- link decisions at d = b must round like
-the plain PyTorch versions.  No ``-use_fast_math`` (it flushes denormals to
-zero and approximates division).
+the plain PyTorch versions.  The potential kernel asks for its FMAs
+explicitly (``__fmaf_rn``), which the flag leaves alone.  No
+``-use_fast_math`` (it flushes denormals to zero and approximates
+division).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import List, Tuple
 
@@ -26,11 +32,10 @@ _BUILD_DIR = (Path(__file__).resolve().parents[2] / "build" /
               "velociraptor_stf_tpu_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# every entry point returns cudaGetLastError() after its launch
+# every launching entry point returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # (pos, ns, windows, b2, out, stream)
     "vr_fof_detect": (_P, _I, _P, _F, _P, _P),
@@ -38,8 +43,9 @@ _SIGNATURES = {
     "vr_fof_sweep3d": (_P, _P, _I, _P, _F, _P, _P),
     # (pos, vel, rivs, grp, labels, ns, windows, inv_b2, out, stream)
     "vr_fof_sweep6d": (_P, _P, _P, _P, _P, _I, _P, _F, _P, _P),
-    # (pos, mass, gid, ns, windows, eps2, out, stream)
-    "vr_potential": (_P, _P, _P, _I, _P, _F, _P, _P),
+    # (packed (x, y, z, m), row windows, ns, items, nitems, first, eps2,
+    #  scratch, out, stream)
+    "vr_potential": (_P, _P, _I, _P, _I, _P, _F, _P, _P, _P),
 }
 
 _lib = None
@@ -57,11 +63,21 @@ def _nvcc() -> str:
     return str(path)
 
 
+def defines() -> Tuple[str, ...]:
+    """``-D`` flags of the potential kernel's launch geometry, whose one
+    source is ``potential.py``."""
+    from . import potential
+
+    return (f"-DVR_POT_THREADS={potential.THREADS}",
+            f"-DVR_POT_ROWS_PER_THREAD={potential.ROWS_PER_THREAD}",
+            f"-DVR_POT_TILE={potential.TILE}")
+
+
 def library_path() -> Tuple[Path, List[Path]]:
-    """(library path keyed by the sources' hash, the sources)."""
+    """(library path keyed by the sources' and flags' hash, the sources)."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in NVCC_FLAGS + defines():
         digest.update(flag.encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -77,14 +93,28 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, *defines(), "-c", "-o", str(obj),
+                 str(src)] for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = Path(tmpdir) / out.name
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        for cmd, proc, text in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
+                                   f"\n{' '.join(cmd)}\n{text}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code "
+                               f"{done.returncode}:\n{' '.join(link)}\n"
+                               f"{done.stdout}{done.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)
     return out
 
 

@@ -20,8 +20,7 @@ import torch
 
 from ..ops import segments
 from ..ops.fof_sweep import SweepFof
-
-from velociraptor_stf_tpu.utils import config as C
+from ..utils import config as C
 
 
 @dataclass

@@ -23,9 +23,8 @@ import torch
 
 from . import halos, properties as props_mod, unbind
 from ..ops import so as so_ops
-
-from velociraptor_stf_tpu.utils import config as C
-from velociraptor_stf_tpu.utils import units
+from ..utils import config as C
+from ..utils import units
 
 
 @dataclass

@@ -22,8 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..ops import segments as seg
-
-from velociraptor_stf_tpu.utils import config as C
+from ..utils import config as C
 
 PROPCMMINNUM = 10  # reference allvars.h:253
 

@@ -36,8 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import gravity, gravity_direct, segments as seg
-
-from velociraptor_stf_tpu.utils.config import POTREF, USYSANDPART, UnbindInfo
+from ..utils.config import POTREF, USYSANDPART, UnbindInfo
 
 CHUNK_ITERS = 4      # iterations between potential recomputes / compaction
 MAX_CHUNKS = 64      # iteration cap: MAX_CHUNKS * CHUNK_ITERS

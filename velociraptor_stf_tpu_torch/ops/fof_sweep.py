@@ -35,9 +35,8 @@ import torch
 from ..kernels import R_BLOCK
 from ..kernels import fof_sweep as K
 from ..kernels._common import BIG_I32
+from ..utils import telemetry
 from .cells import CellGrid, build_grid, cell_coords
-
-from velociraptor_stf_tpu.utils import telemetry
 
 
 @dataclass

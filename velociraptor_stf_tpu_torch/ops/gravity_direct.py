@@ -1,40 +1,31 @@
 """Direct-sum group potential over group-sorted particles (port of
 velociraptor_stf_tpu/ops/pallas_gravity.py::potential_group_sorted).
 
-Each row block of ``R_BLOCK`` group-sorted slots interacts with one slot
-window, ``[offsets[gmin], offsets[gmax+1])`` over the block's nonzero group
-ids: every member of every group that has a row in the block.  Zero-gid
-runs (untagged particles) neither empty a mixed block's window nor drag its
-start down.  The kernel (``kernels/potential.py``) applies the exact
-criterion: same nonzero gid, i != j.
+Every row carries its group's slot range ``[offsets[g], offsets[g+1])``:
+the particles are sorted by group, so its partners are exactly that range
+minus itself.  Rows of gid 0 (untagged, or groups left to the tree) get the
+empty range (0, 0).  The kernel (``kernels/potential.py``) takes the union
+of a row block's ranges as the block's column span, so zero-gid runs
+neither widen a mixed block's span nor drag its start down.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import R_BLOCK
 from ..kernels import potential as K
 
 
 def block_window(gid_s: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """(nblocks, 1, 2) int32 (start, count) slot window of each row block
-    of the group-sorted ``gid_s``; (0, 0) for a block of gid-0 rows."""
-    ns = int(gid_s.shape[0])
-    nblocks = -(-ns // R_BLOCK)
-    g = torch.zeros(nblocks * R_BLOCK, dtype=torch.int64, device=gid_s.device)
-    g[:ns] = gid_s
-    g = g.view(nblocks, R_BLOCK)
-    big = torch.iinfo(torch.int64).max
-    gmin = torch.where(g > 0, g, big).amin(1)
-    gmax = g.amax(1)
-    has_rows = gmax > 0
-    last = offsets.shape[0] - 1
-    s = offsets[gmin.clamp(max=last)]
-    e = offsets[(gmax + 1).clamp(max=last)]
-    start = torch.where(has_rows, s, 0)
-    count = torch.where(has_rows, e - s, 0)
-    return torch.stack([start, count], -1).view(nblocks, 1, 2).to(torch.int32)
+    """(ns, 2) int32 slot range [start, end) of the group of every row of
+    the group-sorted ``gid_s`` (the windows from which the kernel's row
+    blocks take their column spans); (0, 0) for gid 0.  ``offsets`` is the
+    (ng+2,) group slice table."""
+    g = gid_s.long()
+    tagged = g > 0
+    start = torch.where(tagged, offsets[g], 0)
+    end = torch.where(tagged, offsets[g + 1], 0)
+    return torch.stack([start, end], 1).to(torch.int32).contiguous()
 
 
 def potential_group_sorted(pos_s: torch.Tensor, mass_s: torch.Tensor,

@@ -1,0 +1,47 @@
+"""Phase timing / logging.
+
+The port's copy of ``velociraptor_stf_tpu/utils/timing.py``, kept so that
+the port imports nothing of the JAX package.
+
+Equivalent of the reference's wall-clock instrumentation
+(``MyGetTime`` reference utilities.cxx:36 and the ``TIME::`` phase
+lines printed by main.cxx:247-534).  The JAX package's profiler trace
+context is not copied: it needs jax.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict
+
+
+class PhaseTimer:
+    """Collects per-phase wall-clock times; prints reference-style TIME::
+    lines when verbose."""
+
+    def __init__(self, verbose: int = 0):
+        self.verbose = verbose
+        self.times: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.record(name, time.time() - t0)
+
+    def record(self, name: str, dt: float):
+        self.times[name] = self.times.get(name, 0.0) + dt
+        if self.verbose:
+            print(f"TIME::{name} took {dt:.6g} s")
+
+    def report(self):
+        total = sum(self.times.values())
+        if self.verbose:
+            for k, v in self.times.items():
+                print(f"TIME::{k} {v:.6g} s")
+        print(f"TIME::total {total:.6g} s "
+              f"({', '.join(f'{k}={v:.3g}' for k, v in self.times.items())})")
+
