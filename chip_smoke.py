@@ -11,14 +11,21 @@ csrc`` and drives the port on the card, in phases:
    pair are read from the library's SASS (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gives it: detect counts and sweep labels exactly
-   equal, the potential within rel 1e-4 (and on a small case at the edges
-   of its launch geometry, with eps2 = 0 and a coincident pair); times of
-   both, pairs tested and needed, and the bound: the larger of the bytes
-   over the memory rate and the needed pairs' operations over their
-   pipe's rate.  A FOF kernel needs the pairs of each row's 27 cells (of
-   the same 3DFOF group for the 6D sweep), at its SASS instructions per
-   pair over the issue rate; the potential needs sum s (s - 1) rsqrts on
-   the MUFU (and half that under the pair symmetry, printed beside it);
+   equal (rows whose windows are zeroed included), the potential within
+   rel 1e-4 (and on a small case at the edges of its launch geometry,
+   with eps2 = 0 and a coincident pair); times of both, the time to build
+   each subset's cell windows, pairs tested and needed, and the bound: the
+   larger of the bytes over the memory rate and the needed pairs'
+   operations over their pipe's rate.  The bytes are the function's own
+   inputs and outputs, never a kernel's index tables.  A FOF kernel needs
+   the pairs of each row's 27 cells (of the same 3DFOF group for the 6D
+   sweep), at its SASS instructions per pair over the issue rate (for a
+   sweep, the fewer of its own and the function's arithmetic,
+   ``SWEEP_OPS_PER_PAIR``, so that spending more instructions a pair
+   cannot raise its bound); the sweeps must test at most 1.05x the pairs
+   they need, and their lane efficiency is modelled from the rows' window
+   lengths, not measured; the potential needs sum s (s - 1) rsqrts on the
+   MUFU (and half that under the pair symmetry, printed beside it);
 3. ``search_and_unbind`` on the small oracle case of tests/test_oracles.py
    against the independent float64 oracle chain: the partition must be
    exact;
@@ -51,6 +58,7 @@ Any failure exits non-zero.  The last line of stdout is the JSON result
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -93,6 +101,12 @@ MEM_BYTES_PER_S = 3.35e12
 # the FOF kernels, the rsqrt in the potential)
 PAIR_OP = {"fof_detect": "FSETP", "fof_sweep3d": "FSETP",
            "fof_sweep6d": "FSETP", "potential": "MUFU"}
+# lane operations a linking test needs per pair, by the function's own
+# arithmetic: d2 from coordinate differences (3 subtractions, 3 products,
+# 2 sums) and its compare in 3D; in 6D d2 and dv2, d2*inv_b2 + dv2*rivs
+# (2 products, a sum), its compare and the group compare
+SWEEP_OPS_PER_PAIR = {"fof_sweep3d": 9, "fof_sweep6d": 21}
+SWEEP_MAX_EXCESS = 1.05     # pairs tested / needed allowed to a sweep
 # SASS that is no lane arithmetic: loads and stores, branches and
 # convergence barriers; uniform-datapath instructions (U*) run once a warp
 NOT_LANE_ARITH = ("LD", "ST", "BRA", "BSSY", "BSYNC", "BAR", "EXIT", "NOP",
@@ -294,6 +308,7 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
     from velociraptor_stf_tpu_torch.kernels import fof_sweep as KF
     from velociraptor_stf_tpu_torch.kernels import potential as KP
     from velociraptor_stf_tpu_torch.models import halos
+    from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
     from velociraptor_stf_tpu_torch.ops import gravity_direct
     from velociraptor_stf_tpu_torch.ops import segments as seg
     from velociraptor_stf_tpu_torch.ops.fof_sweep import SweepFof
@@ -303,25 +318,50 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
     b2 = b3d * b3d
     fof = SweepFof(pos, vel, BOXSIZE, reach)
     ctx = fof.ctx
-    # a row block with no windows must give count 0 / its own labels
-    win = ctx.windows.clone()
+    # a row block with no windows must give count 0
+    win = ctx.detect_windows.clone()
     zero_blocks = torch.tensor([0, win.shape[0] // 2, win.shape[0] - 1],
                                device=win.device)
     win[zero_blocks] = 0
 
-    def candidate_pairs(windows, rows):
-        """(row, column) pairs a launch scans: rows x window lengths."""
+    def block_pairs(windows, rows):
+        """(row, column) pairs a detect launch scans: rows x the lengths
+        of their block's windows."""
         per_block = torch.full((windows.shape[0],), R_BLOCK,
                                dtype=torch.int64, device=windows.device)
         per_block[-1] = rows - (windows.shape[0] - 1) * R_BLOCK
         return int((per_block * windows[:, :, 1].long().sum(1)).sum())
 
+    def row_lengths(cell, win):
+        """(ns,) columns each row of a sweep scans: its cell's windows."""
+        return win[:, :, 1].long().sum(1)[cell.long()]
+
+    def lane_efficiency(length):
+        """Busy share of the lanes of warps of 32 consecutive rows, each
+        lane running its row's loop, the warp its longest row's: a model
+        from the rows' window lengths, not a measurement."""
+        pad = torch.zeros(-(-length.shape[0] // 32) * 32, dtype=length.dtype,
+                          device=length.device)
+        pad[:length.shape[0]] = length
+        return float(pad.sum()) / max(32 * float(pad.view(-1, 32).amax(1)
+                                                 .sum()), 1.0)
+
+    def zeroed(cell, win):
+        """(windows with the cells of rows 0, ns/2 and ns - 1 emptied, those
+        rows): such rows must keep their own label."""
+        rows = torch.tensor([0, cell.shape[0] // 2, cell.shape[0] - 1],
+                            device=cell.device)
+        w = win.clone()
+        w[cell[rows].long()] = 0
+        return w, rows
+
     def entry(name, source, replaces, err, ms, plain_ms, rows,
               plain_rows, ms_plain_rows, pairs, needed, bound_ops_ms,
               nbytes, **extra):
-        """One kernel's report; the bound is the larger of the bytes the
-        call must move over the memory rate and ``bound_ops_ms``, the
-        operations of the pairs it needs over their pipe's rate."""
+        """One kernel's report; the bound is the larger of ``nbytes``, the
+        function's inputs read once and outputs written once, over the
+        memory rate and ``bound_ops_ms``, the operations of the pairs it
+        needs over their pipe's rate."""
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         bound_ms = max(bytes_ms, bound_ops_ms)
         report.append({"name": name, "route": "cuda", "source": source,
@@ -343,15 +383,26 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
             f"(share {bound_ms / ms:.3f}), plain {plain_ms:.3f} ms "
             f"({plain_rows} rows)")
 
-    def fof_entry(name, err, ms, pms, ctx, nbytes, grp=None):
+    def fof_entry(name, err, ms, pms, ctx, nbytes, pairs, grp=None,
+                  **extra):
         """A FOF kernel: the pairs it needs are those of each row's 27
         cells (of the same group for the 6D sweep), each at its SASS
-        instructions per pair over the issue rate."""
-        pairs = candidate_pairs(ctx.windows, ctx.ns)
-        needed = stencil_pairs(ctx.cx, ctx.cr, fof.grid.ncells, grp)
-        ops_ms = needed * sass[name][0] / LANES_PER_S * 1e3
+        instructions per pair -- for a sweep the fewer of its own and
+        the function's arithmetic -- over the issue rate."""
+        needed = stencil_pairs(ctx.cx, ctx.cr, ctx.ncells, grp)
+        per_pair = min(sass[name][0], SWEEP_OPS_PER_PAIR.get(name, math.inf))
+        ops_ms = needed * per_pair / LANES_PER_S * 1e3
+        if name in SWEEP_OPS_PER_PAIR:
+            log(f"kernel {name}: {sass[name][0]:.4g} SASS lane-instructions "
+                f"per pair, {SWEEP_OPS_PER_PAIR[name]} operations in the "
+                f"function's arithmetic; the bound takes {per_pair:.4g}")
+            if pairs > SWEEP_MAX_EXCESS * needed:
+                raise AssertionError(f"{name}: {pairs} pairs tested, over "
+                                     f"{SWEEP_MAX_EXCESS}x the {needed} "
+                                     "needed")
         entry(name, fof_src, FOF_REPLACES[name], err, ms, pms, ctx.ns,
-              ctx.ns, ms, pairs, needed, ops_ms, nbytes)
+              ctx.ns, ms, pairs, needed, ops_ms, nbytes,
+              ops_per_pair_bound=per_pair, **extra)
 
     fof_src = "velociraptor_stf_tpu_torch/kernels/csrc/fof_sweep.cu"
     FOF_REPLACES = {
@@ -361,6 +412,24 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
+
+    def sweep_windows(c):
+        """The subset's cell windows, and the time to build them (ms, a
+        second build after the one cached on the context)."""
+        cell, win = c.sweep_windows
+        build_ms = wall_ms(torch, lambda: TF.cell_windows(c.cx, c.cr,
+                                                          c.ncells))
+        length = row_lengths(cell, win)
+        mean = float(length.double().mean())
+        eff = lane_efficiency(length)
+        log(f"cell windows of {c.ns} rows ({win.shape[0]} occupied cells): "
+            f"built in {build_ms:.3f} ms; per row {mean:.2f} columns (max "
+            f"{int(length.max())}); lane efficiency {eff:.3f} (modelled "
+            "from the window lengths, not measured)")
+        return cell, win, length, {
+            "window_build_ms": build_ms, "occupied_cells": win.shape[0],
+            "lane_efficiency_modelled": eff}
+
     # detect: the full context, as linked_mask runs it
     got = KF.detect(ctx.pos, win, b2)
     want = KF.detect_ref(ctx.pos, win, KF.f32(b2))
@@ -369,53 +438,65 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
                              f"{int((got != want).sum())} rows")
     if int(got[:R_BLOCK].sum()) != 0:
         raise AssertionError("detect: a block with no windows counted")
-    ms = cuda_ms(torch, lambda: KF.detect(ctx.pos, ctx.windows, b2))
-    pms = wall_ms(torch, lambda: KF.detect_ref(ctx.pos, ctx.windows,
-                                               KF.f32(b2)))
-    fof_entry("fof_detect", 0, ms, pms, ctx,
-              nbytes(ctx.pos, ctx.windows, got))
+    dw = ctx.detect_windows
+    ms = cuda_ms(torch, lambda: KF.detect(ctx.pos, dw, b2))
+    pms = wall_ms(torch, lambda: KF.detect_ref(ctx.pos, dw, KF.f32(b2)))
+    fof_entry("fof_detect", 0, ms, pms, ctx, nbytes(ctx.pos, got),
+              block_pairs(dw, ctx.ns))
 
     # sweep3d: the linked subset, first sweep of the fixed point
     keep, _ = fof.linked_mask(b3d)
-    sub = fof.subset(keep).ctx
+    sub3 = fof.subset(keep)
+    sub = sub3.ctx
+    cell, win, length, extra = sweep_windows(sub)
+    pts = KF.pack(sub.pos.T)
     lab = torch.arange(sub.ns, device=pos.device, dtype=torch.int32)
-    sw = sub.windows.clone()
-    sw[zero_blocks.clamp(max=sw.shape[0] - 1)] = 0
-    got = KF.sweep3d(sub.pos, lab, sw, b2)
-    want = KF.sweep3d_ref(sub.pos, lab, sw, KF.f32(b2))
+    zw, zrows = zeroed(cell, win)
+    got = KF.sweep3d(pts, lab, cell, zw, b2)
+    want = KF.sweep3d_ref(pts, lab, cell, zw, KF.f32(b2))
     if not torch.equal(got, want):
         raise AssertionError("sweep3d kernel disagrees with sweep3d_ref: "
                              f"{int((got != want).sum())} rows")
-    ms = cuda_ms(torch, lambda: KF.sweep3d(sub.pos, lab, sub.windows, b2))
-    pms = wall_ms(torch, lambda: KF.sweep3d_ref(sub.pos, lab, sub.windows,
+    if not torch.equal(got[zrows], lab[zrows]):
+        raise AssertionError("sweep3d: a row with no windows changed label")
+    ms = cuda_ms(torch, lambda: KF.sweep3d(pts, lab, cell, win, b2))
+    pms = wall_ms(torch, lambda: KF.sweep3d_ref(pts, lab, cell, win,
                                                 KF.f32(b2)))
-    fof_entry("fof_sweep3d", 0, ms, pms, sub,
-              nbytes(sub.pos, lab, sub.windows, got))
+    # bytes: positions and labels in, labels out
+    fof_entry("fof_sweep3d", 0, ms, pms, sub, nbytes(sub.pos, lab, got),
+              int(length.sum()), **extra)
 
     # sweep6d: the 3DFOF-tagged subset with the bench's velocity scale
     minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
-    sub3 = fof.subset(keep)
     pfof3, ng3 = sub3.fof3d(b3d, minsize)
     vs = halos.velocity_scales(opt, vel, mass, pfof3, ng3)
     c6 = sub3.subset(pfof3 > 0).ctx
-    grp = pfof3[c6.src].int().contiguous()
+    del sub3, sub, pts, cell, win, zw
+    grp = pfof3[c6.src].int()
     rivs = 1.0 / torch.clamp_min(vs[c6.src], 1e-30)
-    vel6 = vel[c6.src].T.contiguous()
+    cell, win, length, extra = sweep_windows(c6)
+    v6 = vel[c6.src]
+    pts = KF.pack(c6.pos.T, grp)
+    vels = KF.pack(v6, rivs)
     inv_b2 = 1.0 / (b3d * opt.ellhalo6dxfac) ** 2
     lab = torch.arange(c6.ns, device=pos.device, dtype=torch.int32)
-    w6 = c6.windows.clone()
-    w6[zero_blocks.clamp(max=w6.shape[0] - 1)] = 0
-    got = KF.sweep6d(c6.pos, vel6, rivs, grp, lab, w6, inv_b2)
-    want = KF.sweep6d_ref(c6.pos, vel6, rivs, grp, lab, w6, KF.f32(inv_b2))
+    zw, zrows = zeroed(cell, win)
+    got = KF.sweep6d(pts, vels, lab, cell, zw, inv_b2)
+    want = KF.sweep6d_ref(pts, vels, lab, cell, zw, KF.f32(inv_b2))
     if not torch.equal(got, want):
         raise AssertionError("sweep6d kernel disagrees with sweep6d_ref: "
                              f"{int((got != want).sum())} rows")
-    ms = cuda_ms(torch, lambda: KF.sweep6d(c6.pos, vel6, rivs, grp, lab,
-                                           c6.windows, inv_b2))
-    pms = wall_ms(torch, lambda: KF.sweep6d_ref(
-        c6.pos, vel6, rivs, grp, lab, c6.windows, KF.f32(inv_b2)))
+    if not torch.equal(got[zrows], lab[zrows]):
+        raise AssertionError("sweep6d: a row with no windows changed label")
+    ms = cuda_ms(torch, lambda: KF.sweep6d(pts, vels, lab, cell, win,
+                                           inv_b2))
+    pms = wall_ms(torch, lambda: KF.sweep6d_ref(pts, vels, lab, cell, win,
+                                                KF.f32(inv_b2)))
+    # bytes: positions, velocities, groups, scales and labels in, labels out
     fof_entry("fof_sweep6d", 0, ms, pms, c6,
-              nbytes(c6.pos, vel6, rivs, grp, lab, c6.windows, got), grp)
+              nbytes(c6.pos, v6, grp, rivs, lab, got), int(length.sum()),
+              grp, **extra)
+    del c6, v6, pts, vels, cell, win, zw
 
     # potential: the full box sorted by 6DFOF group -- untagged (gid 0)
     # blocks first, the last group at the array tail -- as compute_potential
@@ -481,13 +562,14 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
     needed = int((sizes * (sizes - 1)).sum())
     ops_ms = max(needed / MUFU_LANES_PER_S,
                  needed * sass["potential"][0] / LANES_PER_S) * 1e3
-    sym_ms = max(ops_ms / 2, nbytes(pos_s, mass_s, pw, got) /
-                 MEM_BYTES_PER_S * 1e3)
+    # bytes: positions, masses and group ids in, potentials out
+    pot_bytes = nbytes(pos_s, mass_s, gid_s, got)
+    sym_ms = max(ops_ms / 2, pot_bytes / MEM_BYTES_PER_S * 1e3)
     entry("potential", "velociraptor_stf_tpu_torch/kernels/csrc/"
           "potential.cu", "velociraptor_stf_tpu/ops/pallas_gravity.py:40",
           float(err.max()), ms, pms, pos_s.shape[1], int(rows.shape[0]),
           ms_sub, KP.pairs_tested(pw), needed, ops_ms,
-          nbytes(pos_s, mass_s, pw, got), pairs_needed_symmetric=needed // 2,
+          pot_bytes, pairs_needed_symmetric=needed // 2,
           bound_ms_symmetric=sym_ms, share_of_bound_symmetric=sym_ms / ms)
     log(f"kernel potential: under the symmetric count ({needed // 2} "
         f"pairs) bound {sym_ms:.3f} ms, share {sym_ms / ms:.3f}")
@@ -943,9 +1025,11 @@ def main() -> int:
                 raise AssertionError("main path: two runs on the same input "
                                      "differ")
             metric = res.timings["fof"] + res.timings["unbind"]
+            digest = hashlib.sha256(res.pfof.tobytes() + res.W.tobytes())
             log(f"phase 4 run {rep} ({'warm-up' if rep == 0 else 'timed'}): "
                 f"ngroups {res.ngroups} timings {json.dumps(res.timings)} "
-                f"wall {wall:.3f} s fof+unbind {n / metric:.1f} particles/s")
+                f"wall {wall:.3f} s fof+unbind {n / metric:.1f} particles/s "
+                f"ids and potentials sha256 {digest.hexdigest()[:16]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"launches {json.dumps(counts)} peak memory "

@@ -112,12 +112,12 @@ def test_context_matches_reference():
 
 
 def test_windows_are_disjoint_supersets():
-    """Exact-slot windows: disjoint per block, and every neighbour of every
-    row lies in its block's windows."""
+    """Exact-slot block windows (detect's): disjoint per block, and every
+    neighbour of every row lies in its block's windows."""
     pos, _, _, boxsize = _clustered()
     reach = 0.2 * boxsize / len(pos) ** (1 / 3)
     ctx, _ = TF.build_fof_ctx(_t(pos), boxsize, reach)
-    w = ctx.windows.long().numpy()
+    w = ctx.detect_windows.long().numpy()
     cover = np.zeros((w.shape[0], ctx.ns), np.int32)
     for b in range(w.shape[0]):
         for s, c in w[b]:
@@ -128,6 +128,28 @@ def test_windows_are_disjoint_supersets():
     from velociraptor_stf_tpu_torch.kernels import R_BLOCK
     for i, j in ((pairs[:, 0], pairs[:, 1]), (pairs[:, 1], pairs[:, 0])):
         assert cover[i // R_BLOCK, j].all()
+
+
+def test_each_context_builds_only_its_windows_once(monkeypatch):
+    """The field search builds block windows once, for detect on the full
+    context, and cell windows once for each subset its fixed points sweep
+    (the linked subset, then the 6D subset), however many sweeps run."""
+    calls, sweeps = [], []
+    for name in ("block_windows", "cell_windows"):
+        fn = getattr(TF, name)
+        monkeypatch.setattr(TF, name, lambda cx, *a, _fn=fn, _name=name: (
+            calls.append((_name, int(cx.shape[0]))) or _fn(cx, *a)))
+    for name in ("sweep3d", "sweep6d"):
+        fn = getattr(TF.K, name)
+        monkeypatch.setattr(TF.K, name, lambda *a, _fn=fn, _name=name: (
+            sweeps.append(_name) or _fn(*a)))
+    pos, vel, mass, boxsize = _mock()
+    got = _port_search(_opts(boxsize, len(pos)), pos, vel, mass, boxsize)
+    assert got.ngroups > 0
+    assert [c[0] for c in calls] == ["block_windows", "cell_windows",
+                                     "cell_windows"]
+    assert calls[0][1] > calls[1][1] > calls[2][1]
+    assert sweeps.count("sweep3d") >= 2 and sweeps.count("sweep6d") >= 2
 
 
 def test_linked_mask_matches_kdtree():

@@ -5,7 +5,9 @@ as tests/test_pallas_interpret.py runs them.
 
 Both sides see the same cell-sorted slots (the context test of
 test_torch_fof.py pins the slot order), so per-slot results compare
-directly: counts and labels exactly, the potential within rel 1e-4.
+directly: counts and labels exactly, the potential within rel 1e-4.  The
+Pallas sweeps scan a block's windows, the port's plain sweeps each row's
+own cell windows: the same function over other candidate sets.
 """
 
 import numpy as np
@@ -50,7 +52,8 @@ def test_detect_matches_pallas(box, monkeypatch):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(PF._make_detect_3d(jctx.ns_pad, b * b)(
             jctx.ranges, jctx.cols_p, jctx.cols_p))[0, :tctx.ns]
-    got = KF.detect_ref(tctx.pos, tctx.windows, KF.f32(b * b)).numpy()
+    got = KF.detect_ref(tctx.pos, tctx.detect_windows,
+                        KF.f32(b * b)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got >= 1).all() and (got >= 2).any()
 
@@ -64,7 +67,8 @@ def test_sweep3d_matches_pallas(box, monkeypatch):
         want = np.asarray(PF._make_sweep_3d(jctx.ns_pad, b * b)(
             jctx.ranges, merged, merged))[0, :tctx.ns]
     lab = torch.arange(tctx.ns, dtype=torch.int32)
-    got = KF.sweep3d_ref(tctx.pos, lab, tctx.windows, KF.f32(b * b))
+    cell, win = tctx.sweep_windows
+    got = KF.sweep3d_ref(KF.pack(tctx.pos.T), lab, cell, win, KF.f32(b * b))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got < lab).any()
 
@@ -106,9 +110,10 @@ def test_sweep6d_matches_pallas(box, monkeypatch):
     src = tctx.src
     rivs = 1.0 / torch.clamp_min(vs2[src], 1e-30)
     lab = torch.arange(tctx.ns, dtype=torch.int32)
-    got = KF.sweep6d_ref(tctx.pos, torch.from_numpy(vel)[src].T.contiguous(),
-                         rivs, pfof3[src].int(), lab, tctx.windows,
-                         KF.f32(inv_b2))
+    cell, win = tctx.sweep_windows
+    got = KF.sweep6d_ref(KF.pack(tctx.pos.T, pfof3[src].int()),
+                         KF.pack(torch.from_numpy(vel)[src], rivs), lab,
+                         cell, win, KF.f32(inv_b2))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got < lab).any()
 

@@ -34,8 +34,8 @@ def cuda():
 
 
 def _cloud(seed=0, n=3000, box=10.0):
-    """Clumped points in a non-periodic box, cell-sorted with windows for
-    linking length 0.15."""
+    """Clumped points in a non-periodic box, cell-sorted for linking length
+    0.15."""
     rng = np.random.default_rng(seed)
     pos = np.vstack([rng.normal(3.0, 0.2, (n // 2, 3)),
                      rng.uniform(0, box, (n - n // 2, 3))]).astype(np.float32)
@@ -56,24 +56,87 @@ def test_plain_fof_versions_match_brute_force():
     p = ctx.pos.T
     b2 = KF.f32(ll * ll)
     link = _brute_d2(p) <= b2
-    cnt = KF.detect_ref(ctx.pos, ctx.windows, b2)
+    cnt = KF.detect_ref(ctx.pos, ctx.detect_windows, b2)
     assert torch.equal(cnt, link.sum(1, dtype=torch.int32))
     lab = torch.randperm(ctx.ns, generator=torch.Generator().manual_seed(1)
                          ).int()
     want = torch.where(link, lab[None, :], KF.BIG_I32).amin(1).int()
-    assert torch.equal(KF.sweep3d_ref(ctx.pos, lab, ctx.windows, b2), want)
+    cell, win = ctx.sweep_windows
+    pts = KF.pack(p)
+    assert torch.equal(pts[:, :3], p) and not pts[:, 3].any()
+    assert torch.equal(KF.sweep3d_ref(pts, lab, cell, win, b2), want)
     # 6D: same nonzero group, phase criterion with per-row scales
     rng = np.random.default_rng(2)
-    vel = torch.from_numpy(rng.normal(0, 1, (3, ctx.ns)).astype(np.float32))
+    vel = torch.from_numpy(rng.normal(0, 1, (ctx.ns, 3)).astype(np.float32))
     grp = torch.from_numpy(rng.integers(0, 3, ctx.ns).astype(np.int32))
     rivs = torch.from_numpy(rng.uniform(0.5, 2, ctx.ns).astype(np.float32))
     inv_b2 = KF.f32(1.0 / (ll * ll))
-    phase = _brute_d2(p) * inv_b2 + _brute_d2(vel.T) * rivs[:, None]
+    phase = _brute_d2(p) * inv_b2 + _brute_d2(vel) * rivs[:, None]
     ok = (phase <= 1.0) & (grp[:, None] == grp[None, :]) & (grp[:, None] > 0)
     want6 = torch.minimum(lab, torch.where(ok, lab[None, :],
                                            KF.BIG_I32).amin(1).int())
-    got6 = KF.sweep6d_ref(ctx.pos, vel, rivs, grp, lab, ctx.windows, inv_b2)
+    pts6, vels = KF.pack(p, grp), KF.pack(vel, rivs)
+    assert torch.equal(pts6.view(torch.int32)[:, 3], grp)   # bits carried
+    assert torch.equal(vels[:, 3], rivs)
+    got6 = KF.sweep6d_ref(pts6, vels, lab, cell, win, inv_b2)
     assert torch.equal(got6, want6)
+
+
+def _faces(seed=8, box=6.0):
+    """Uniform points plus points on every face, edge and corner of the
+    box, so rows sit in every outer cell of the open grid."""
+    rng = np.random.default_rng(seed)
+    k = np.array([0.0, box / 2, box])
+    lattice = np.stack(np.meshgrid(k, k, k), -1).reshape(-1, 3)
+    face = rng.uniform(0, box, (600, 3))
+    face[np.arange(600), rng.integers(0, 3, 600)] = \
+        rng.choice([0.0, box], 600)
+    return np.vstack([lattice, face, rng.uniform(0, box, (900, 3))]
+                     ).astype(np.float32)
+
+
+@pytest.mark.parametrize("geometry", ["clumped_periodic", "open", "faces"])
+def test_cell_windows_are_exact(geometry):
+    """Every row's nine cell windows are disjoint, hold exactly the slots
+    of the 27 cells around its cell (so their total length is those
+    cells' occupancy), and so every slot within reach; z-columns off the
+    grid and z beyond its ends add nothing."""
+    rng = np.random.default_rng(7)
+    if geometry == "clumped_periodic":
+        box, reach = 10.0, 0.4
+        pos = np.vstack([rng.normal(5.0, 0.3, (1000, 3)),
+                         rng.normal(0.2, 0.3, (500, 3)) % box,
+                         rng.uniform(0, box, (1000, 3))]).astype(np.float32)
+        ctx, grid = TF.build_fof_ctx(torch.from_numpy(pos), box, reach)
+        assert (~ctx.is_real).any()                  # ghosts in outer cells
+    else:
+        reach = 0.4 if geometry == "open" else 0.5
+        pos = (np.vstack([rng.normal(3.0, 0.3, (1200, 3)),
+                          rng.uniform(0, 10, (1200, 3))]).astype(np.float32)
+               if geometry == "open" else _faces())
+        ctx, grid = TF.build_fof_ctx(torch.from_numpy(pos), None, reach)
+    nx, ny, nz = grid.ncells
+    cell, win = TF.cell_windows(ctx.cx, ctx.cr, grid.ncells)
+    assert cell.dtype == win.dtype == torch.int32
+    assert win.shape == (int(cell.max()) + 1, 9, 2)
+    c = np.stack([ctx.cx.numpy(), ctx.cr.numpy() // nz,
+                  ctx.cr.numpy() % nz], 1)
+    for axis, n in enumerate((nx, ny, nz)):
+        assert c[:, axis].min() == 0 and c[:, axis].max() == n - 1
+    ns = ctx.ns
+    w = win.long().numpy()[cell.long().numpy()]          # (ns, 9, 2)
+    rows = np.repeat(np.arange(ns), 9)
+    diff = np.zeros((ns, ns + 1), np.int32)
+    np.add.at(diff, (rows, w[:, :, 0].ravel()), 1)
+    np.add.at(diff, (rows, (w[:, :, 0] + w[:, :, 1]).ravel()), -1)
+    cover = np.cumsum(diff, 1)[:, :ns]
+    assert cover.max() == 1                                  # disjoint
+    near = (np.abs(c[:, None, :] - c[None, :, :]) <= 1).all(-1)
+    np.testing.assert_array_equal(cover == 1, near)         # the 27 cells
+    np.testing.assert_array_equal(w[:, :, 1].sum(1), near.sum(1))
+    d2 = _brute_d2(ctx.pos.T.double()).numpy()
+    assert cover[d2 <= reach * reach].all()
+    assert (w[:, :, 1] == 0).any()          # some z-column off the grid
 
 
 def _grouped(seed=3):
@@ -233,10 +296,16 @@ def test_stencil_pairs_count_each_rows_27_cells(groups):
     if groups:
         near &= (grp[:, None] == grp[None, :]) & (grp[:, None] > 0)
     assert got == int(near.sum()) > ctx.ns // 2
-    # the kernels' windows hold every such pair
-    assert got <= int(sum(int(ctx.windows[b, :, 1].sum()) *
+    # the sweeps' cell windows hold exactly the 27 cells' pairs: all of
+    # them in 3D, and with groups those pairs are a subset of them
+    cell, win = ctx.sweep_windows
+    tested = int(win[cell.long(), :, 1].long().sum())
+    assert tested == got if not groups else tested > got
+    # detect's block windows hold every such pair
+    w = ctx.detect_windows
+    assert got <= int(sum(int(w[b, :, 1].sum()) *
                           min(R_BLOCK, ctx.ns - b * R_BLOCK)
-                          for b in range(ctx.windows.shape[0])))
+                          for b in range(w.shape[0])))
 
 
 _SASS = """
@@ -277,16 +346,45 @@ def test_sass_per_pair_reads_the_innermost_scan(monkeypatch):
 def test_wrappers_reject_bad_arguments():
     ctx, ll = _cloud(n=600)
     lab = torch.arange(ctx.ns, dtype=torch.int32)
+    bw = ctx.detect_windows
     with pytest.raises(TypeError):
-        KF.detect(ctx.pos.double(), ctx.windows, ll * ll)
+        KF.detect(ctx.pos.double(), bw, ll * ll)
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos.T, ctx.windows, ll * ll)
+        KF.detect(ctx.pos.T, bw, ll * ll)
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos, ctx.windows[:-1], ll * ll)
+        KF.detect(ctx.pos, bw[:-1], ll * ll)
+    cell, win = ctx.sweep_windows
+    pts = KF.pack(ctx.pos.T)
+    vels = KF.pack(torch.zeros(ctx.ns, 3), torch.ones(ctx.ns))
     with pytest.raises(TypeError):
-        KF.sweep3d(ctx.pos, lab.long(), ctx.windows, ll * ll)
+        KF.sweep3d(pts, lab.long(), cell, win, ll * ll)
     with pytest.raises(ValueError):
-        KF.sweep3d(ctx.pos, lab[::2], ctx.windows, ll * ll)
+        KF.sweep3d(pts, lab[::2], cell, win, ll * ll)
+    with pytest.raises(TypeError):
+        KF.sweep3d(pts.double(), lab, cell, win, ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts[:, :3], lab, cell, win, ll * ll)
+    with pytest.raises(ValueError):                    # not 16-byte aligned
+        KF.sweep3d(torch.zeros(ctx.ns * 4 + 1)[1:].view(ctx.ns, 4), lab,
+                   cell, win, ll * ll)
+    with pytest.raises(TypeError):
+        KF.sweep3d(pts, lab, cell.long(), win, ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts, lab, cell[1:], win, ll * ll)
+    with pytest.raises(TypeError):
+        KF.sweep3d(pts, lab, cell, win.long(), ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts, lab, cell, win[:, :8], ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts, lab, cell, win.reshape(-1, 2), ll * ll)
+    with pytest.raises(ValueError):                    # a block-window array
+        KF.sweep3d(pts, lab, cell, bw.transpose(1, 2), ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep6d(pts, vels[1:], lab, cell, win, 1.0)
+    with pytest.raises(TypeError):
+        KF.sweep6d(pts, vels.double(), lab, cell, win, 1.0)
+    with pytest.raises(ValueError):
+        KF.sweep6d(pts, vels, lab, cell, win.transpose(1, 2), 1.0)
     pos, mass, g = _grouped()
     win = gravity_direct.block_window(g, seg.group_offsets(g, int(g.max())))
     with pytest.raises(TypeError):
@@ -295,30 +393,74 @@ def test_wrappers_reject_bad_arguments():
         KP.potential(pos.T, mass, g.int(), win, 0.0)   # not contiguous
 
 
+@pytest.mark.parametrize("fault", ["cell past the table", "negative cell",
+                                   "window past the rows", "negative start",
+                                   "negative count", "count past the rows"])
+@pytest.mark.parametrize("sweep", ["3d", "6d"])
+def test_sweeps_reject_windows_out_of_range(sweep, fault):
+    """A cell number outside the window table or a window outside the rows
+    is refused before any scan (the kernels would read out of bounds),
+    also when the windows of a passing call are changed in place."""
+    ctx, ll = _cloud(n=600)
+    lab = torch.arange(ctx.ns, dtype=torch.int32)
+    cell, win = (t.clone() for t in ctx.sweep_windows)
+    pts = KF.pack(ctx.pos.T)
+    vels = KF.pack(torch.zeros(ctx.ns, 3), torch.ones(ctx.ns))
+
+    def run():
+        if sweep == "3d":
+            return KF.sweep3d(pts, lab, cell, win, ll * ll)
+        return KF.sweep6d(pts, vels, lab, cell, win, 1.0)
+
+    run()
+    if fault == "cell past the table":
+        cell[5] = win.shape[0]
+    elif fault == "negative cell":
+        cell[0] = -1
+    elif fault == "window past the rows":
+        win[int(cell[-1]), 4] = torch.tensor([ctx.ns - 1, 2])
+    elif fault == "negative start":
+        win[0, 0, 0] = -1
+    elif fault == "negative count":
+        win[0, 8, 1] = -1
+    else:
+        win[int(cell[3]), 4, 1] += ctx.ns
+    with pytest.raises(ValueError):
+        run()
+
+
 @pytest.mark.gpu
 def test_cuda_fof_kernels_match_plain(cuda):
     ctx, ll = _cloud(n=20000)
     b2 = KF.f32(ll * ll)
     pos = ctx.pos.to(cuda)
-    win = ctx.windows.clone()
-    win[1] = 0                                # a block with no windows
-    win = win.to(cuda)
-    cnt = KF.detect(pos, win, b2)
-    assert torch.equal(cnt, KF.detect_ref(pos, win, b2))
+    bw = ctx.detect_windows.clone()
+    bw[1] = 0                                 # a block with no windows
+    bw = bw.to(cuda)
+    cnt = KF.detect(pos, bw, b2)
+    assert torch.equal(cnt, KF.detect_ref(pos, bw, b2))
     assert int(cnt[R_BLOCK:2 * R_BLOCK].sum()) == 0
+    cell, win = (t.to(cuda) for t in ctx.sweep_windows)
+    win = win.clone()
+    zero = torch.tensor([0, ctx.ns // 2, ctx.ns - 1], device=cuda)
+    win[cell[zero].long()] = 0                # rows whose cells scan nothing
+    pts = KF.pack(pos.T)
     lab = torch.randperm(ctx.ns, device=cuda).int()
-    got = KF.sweep3d(pos, lab, win, b2)
-    assert torch.equal(got, KF.sweep3d_ref(pos, lab, win, b2))
-    assert torch.equal(got[R_BLOCK:2 * R_BLOCK], lab[R_BLOCK:2 * R_BLOCK])
+    got = KF.sweep3d(pts, lab, cell, win, b2)
+    assert torch.equal(got, KF.sweep3d_ref(pts, lab, cell, win, b2))
+    assert torch.equal(got[zero], lab[zero])
+    assert not torch.equal(got, lab)
     gen = torch.Generator(device=cuda).manual_seed(4)
-    vel = torch.randn(3, ctx.ns, device=cuda, generator=gen)
+    vel = torch.randn(ctx.ns, 3, device=cuda, generator=gen)
     grp = torch.randint(0, 4, (ctx.ns,), device=cuda, generator=gen,
                         dtype=torch.int32)
     rivs = torch.rand(ctx.ns, device=cuda, generator=gen) + 0.5
     inv_b2 = KF.f32(1.0 / (ll * ll))
-    got6 = KF.sweep6d(pos, vel, rivs, grp, lab, win, inv_b2)
-    assert torch.equal(got6, KF.sweep6d_ref(pos, vel, rivs, grp, lab, win,
+    pts6, vels = KF.pack(pos.T, grp), KF.pack(vel, rivs)
+    got6 = KF.sweep6d(pts6, vels, lab, cell, win, inv_b2)
+    assert torch.equal(got6, KF.sweep6d_ref(pts6, vels, lab, cell, win,
                                             inv_b2))
+    assert torch.equal(got6[zero], lab[zero])
     assert not torch.equal(got6, lab)
 
 
@@ -359,8 +501,18 @@ def test_cuda_wrappers_count_launches_and_reject_cpu_windows(cuda):
 
     ctx, ll = _cloud(n=2000)
     kernels.reset_launches()
-    KF.detect(ctx.pos.to(cuda), ctx.windows.to(cuda), ll * ll)
+    KF.detect(ctx.pos.to(cuda), ctx.detect_windows.to(cuda), ll * ll)
     assert kernels.LAUNCHES["fof_detect"] == 1
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos.to(cuda), ctx.windows, ll * ll)
+        KF.detect(ctx.pos.to(cuda), ctx.detect_windows, ll * ll)
     assert kernels.LAUNCHES["fof_detect"] == 1
+    cell, win = ctx.sweep_windows
+    pts = KF.pack(ctx.pos.T).to(cuda)
+    lab = torch.arange(ctx.ns, dtype=torch.int32, device=cuda)
+    KF.sweep3d(pts, lab, cell.to(cuda), win.to(cuda), ll * ll)
+    assert kernels.LAUNCHES["fof_sweep3d"] == 1
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts, lab, cell, win.to(cuda), ll * ll)
+    with pytest.raises(ValueError):
+        KF.sweep3d(pts, lab, cell.to(cuda), win, ll * ll)
+    assert kernels.LAUNCHES["fof_sweep3d"] == 1

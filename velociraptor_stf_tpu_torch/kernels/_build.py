@@ -39,10 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # (pos, ns, windows, b2, out, stream)
     "vr_fof_detect": (_P, _I, _P, _F, _P, _P),
-    # (pos, labels, ns, windows, b2, out, stream)
-    "vr_fof_sweep3d": (_P, _P, _I, _P, _F, _P, _P),
-    # (pos, vel, rivs, grp, labels, ns, windows, inv_b2, out, stream)
-    "vr_fof_sweep6d": (_P, _P, _P, _P, _P, _I, _P, _F, _P, _P),
+    # (packed (x, y, z, .), labels, cell, cell windows, ns, b2, out, stream)
+    "vr_fof_sweep3d": (_P, _P, _P, _P, _I, _F, _P, _P),
+    # (packed (x, y, z, grp), packed (vx, vy, vz, rivs), labels, cell,
+    #  cell windows, ns, inv_b2, out, stream)
+    "vr_fof_sweep6d": (_P, _P, _P, _P, _P, _I, _F, _P, _P),
     # (packed (x, y, z, m), row windows, ns, items, nitems, first, eps2,
     #  scratch, out, stream)
     "vr_potential": (_P, _P, _I, _P, _I, _P, _F, _P, _P, _P),

@@ -1,12 +1,14 @@
-"""Argument checks and the row-block tiling shared by the kernel wrappers
-and their plain PyTorch versions."""
+"""Argument checks, and the enumerations of window columns, shared by the
+kernel wrappers and their plain PyTorch versions."""
 
 from __future__ import annotations
 
+import weakref
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import R_BLOCK
 
@@ -49,6 +51,62 @@ def check_rows(pos: torch.Tensor, nwin: int,
     nblocks = -(-ns // R_BLOCK)
     require(windows, "windows", torch.int32, (nblocks, nwin, 2), pos.device)
     return ns
+
+
+def check_cells(pts: torch.Tensor, nwin: int, cell: torch.Tensor,
+                win: torch.Tensor) -> int:
+    """Validate the (ns, 4) float32 packed rows, the (ns,) int32 cell of
+    each row and the (ncell, nwin, 2) int32 cell windows of one launch,
+    and that their contents stay in range; return ns.  The kernels load a
+    row as one float4 and a window as one int2, so both tensors must be
+    aligned to their load."""
+    if pts.dim() != 2 or pts.shape[1] != 4:
+        raise ValueError(f"pts: expected shape (ns, 4), got "
+                         f"{tuple(pts.shape)}")
+    ns = int(pts.shape[0])
+    if ns >= 2**31:
+        raise ValueError(f"{ns} rows exceed the kernels' int32 indexing")
+    require(pts, "pts", torch.float32, (ns, 4), pts.device)
+    require(cell, "cell", torch.int32, (ns,), pts.device)
+    if win.dim() != 3:
+        raise ValueError(f"win: expected shape (ncell, {nwin}, 2), got "
+                         f"{tuple(win.shape)}")
+    require(win, "win", torch.int32, (win.shape[0], nwin, 2), pts.device)
+    if pts.data_ptr() % 16 or win.data_ptr() % 8:
+        raise ValueError("pts must be 16-byte and win 8-byte aligned")
+    _check_cell_contents(cell, win, ns)
+    return ns
+
+
+# win -> (cell, the versions of both and ns) of a pair whose contents
+# passed ``_check_cell_contents``; an in-place change bumps a version
+_CHECKED = WeakIdKeyDictionary()
+
+
+def _check_cell_contents(cell: torch.Tensor, win: torch.Tensor,
+                         ns: int) -> None:
+    """Raise unless every cell number indexes ``win`` and every window
+    (start, count) lies in [0, ns): the kernels would read out of bounds.
+    Checked once per pair of tensors until one changes, with one host
+    sync, so the sweeps of a fixed point over the same windows pay it once."""
+    stamp = (cell._version, win._version, ns)
+    seen = _CHECKED.get(win)
+    if seen is not None and seen[0]() is cell and seen[1] == stamp:
+        return
+    bad = torch.zeros(2, dtype=torch.bool, device=cell.device)
+    if cell.numel():
+        lo, hi = torch.aminmax(cell)
+        bad[0] = (lo < 0) | (hi >= win.shape[0])
+    if win.numel():
+        start, count = win[..., 0], win[..., 1]
+        bad[1] = ((start.amin() < 0) | (count.amin() < 0) |
+                  ((start.long() + count).amax() > ns))
+    cell_bad, win_bad = bad.tolist()
+    if cell_bad:
+        raise ValueError(f"cell: a cell number outside [0, {win.shape[0]})")
+    if win_bad:
+        raise ValueError(f"win: a window outside the {ns} rows")
+    _CHECKED[win] = (weakref.ref(cell), stamp)
 
 
 def kernel_device(t: torch.Tensor) -> bool:
@@ -105,6 +163,37 @@ def window_tiles(windows: torch.Tensor, ns: int,
             cols = start.gather(1, k) + j - first.gather(1, k)
             cvalid = j < total[:, None]
             yield rows, rvalid, torch.where(cvalid, cols, 0), cvalid
+
+
+def cell_pairs(cell: torch.Tensor, win: torch.Tensor
+               ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Enumerate, batch by batch of consecutive rows, every (row, column)
+    pair of each row's cell windows: yields flat int64 ``(rows, cols)``,
+    in row, window and column order.  A batch holds at most a budget of
+    pairs (or one row), so no rows x window array is formed."""
+    device = win.device
+    ns = int(cell.shape[0])
+    if ns == 0:
+        return
+    budget = (1 << 24) if device.type == "cuda" else (1 << 22)
+    cell = cell.long()
+    length = win[:, :, 1].long()
+    cum = torch.cumsum(length.sum(1)[cell], 0)
+    nwin = win.shape[1]
+    r0, done = 0, 0
+    while r0 < ns:
+        r1 = int(torch.searchsorted(cum, done + budget, right=True))
+        r1 = min(max(r1, r0 + 1), ns)
+        seg_len = length[cell[r0:r1]].reshape(-1)          # (rows * nwin,)
+        seg_start = win[cell[r0:r1], :, 0].long().reshape(-1)
+        total = int(cum[r1 - 1]) - done
+        seg = torch.repeat_interleave(
+            torch.arange(seg_len.shape[0], device=device), seg_len,
+            output_size=total)
+        first = torch.cumsum(seg_len, 0) - seg_len
+        cols = seg_start[seg] + torch.arange(total, device=device) - first[seg]
+        yield r0 + torch.div(seg, nwin, rounding_mode="floor"), cols
+        r0, done = r1, done + total
 
 
 def pair_d2(a: torch.Tensor, rows: torch.Tensor,

@@ -2,12 +2,24 @@
 point and renumbering (port of velociraptor_stf_tpu/ops/pallas_fof.py).
 
 Particles -- plus periodic ghost images -- are sorted on their (cx, r)
-cell pair, r = cy*nz + cz.  For a block of ``R_BLOCK`` consecutive slots
-spanning cells (cx0, r0)..(cx1, r1), every neighbour of every row lies, for
-each (dx, dy) stencil offset, in one contiguous slot range; the nine ranges
-are merged into a disjoint union per block (``block_windows``), and the
-kernels of ``kernels/fof_sweep.py`` evaluate the exact link criterion over
-them: a candidate superset plus an exact test gives exact FOF links.
+cell pair, r = cy*nz + cz.  Every neighbour of a slot then lies, for each
+(dx, dy) stencil offset, in one contiguous slot range: the cells
+(cx+dx, cy+dy, cz-1..cz+1) of one z-column.  Two window layouts serve the
+kernels of ``kernels/fof_sweep.py``, which evaluate the exact link
+criterion over them (a candidate superset plus an exact test gives exact
+FOF links):
+
+* ``block_windows``: per block of ``R_BLOCK`` consecutive slots, the nine
+  ranges from the block's first cell to its last, merged into a disjoint
+  union (the reference's layout).  ``detect`` takes them on the full
+  context.
+* ``cell_windows``: per occupied cell, the nine z-column ranges of its own
+  27 cells, disjoint by construction.  The sweeps take them: a row scans
+  exactly the slots of its 27 cells.
+
+A context builds each layout at its first use and keeps it, so the full
+context builds only block windows, a subset that a fixed point sweeps
+only cell windows, each once.
 
 Periodic boxes get ghost images of the particles within ``reach`` of a face
 (three axis passes, so corners compose), which makes the grid
@@ -27,6 +39,7 @@ capacity can overflow and no fallback pipeline is needed.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -51,12 +64,22 @@ class FofCtx:
     real_slot: torch.Tensor  # (n,) int64 slot of each original particle
     gslots: torch.Tensor     # (ng,) int64 ghost slots
     grs: torch.Tensor        # (ng,) int64 slot of each ghost's source
-    windows: torch.Tensor    # (nblocks, 9, 2) int32 coverage windows
     n: int                   # original particle count
+    ncells: Tuple[int, int, int]   # the cell grid's (nx, ny, nz)
 
     @property
     def ns(self) -> int:
         return int(self.src.shape[0])
+
+    @cached_property
+    def detect_windows(self) -> torch.Tensor:
+        """(nblocks, 9, 2) int32 block windows (``block_windows``)."""
+        return block_windows(self.cx, self.cr, self.ncells)
+
+    @cached_property
+    def sweep_windows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cell, win) of ``cell_windows``."""
+        return cell_windows(self.cx, self.cr, self.ncells)
 
 
 def _ghost_pass(pos: torch.Tensor, src: torch.Tensor, axis: int,
@@ -146,22 +169,61 @@ def block_windows(cx: torch.Tensor, cr: torch.Tensor,
     return torch.stack(out, 1).to(torch.int32)       # (nblocks, 9, 2)
 
 
+def cell_windows(cx: torch.Tensor, cr: torch.Tensor,
+                 ncells: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cell, win): the (ns,) int32 number of each slot's cell among the
+    occupied cells, in slot order, and (ncell, 9, 2) int32 windows
+    (start, count) of each occupied cell (x, y, z): for each (dx, dy) in
+    {-1, 0, 1}^2 the slots of cells (x+dx, y+dy, z-1..z+1).
+
+    The z range is clamped to [0, nz) inside its z-column and a z-column
+    off the grid is empty, so a window never reaches into the next
+    z-column; the nine lie in nine z-columns and are disjoint.  Together
+    they hold exactly the slots of the 27 cells around the cell.  In key
+    space the cells (x+dx, y+dy, z') are the cell's own key plus
+    (dx*ny + dy)*nz + z' - z, so each window is two binary searches of
+    shifted keys over the sorted slot keys."""
+    nx, ny, nz = ncells
+    key = cx * (ny * nz) + cr
+    cells, cell = torch.unique_consecutive(key, return_inverse=True)
+    x, y, z = cells // (ny * nz), cells // nz % ny, cells % nz
+    first = cells - (z > 0).long()                  # (x, y, max(z-1, 0))
+    last = cells + (z < nz - 1).long()              # (x, y, min(z+1, nz-1))
+    inside_x = {-1: x > 0, 0: None, 1: x < nx - 1}
+    inside_y = {-1: y > 0, 0: None, 1: y < ny - 1}
+    start = torch.empty(9, cells.shape[0], dtype=torch.int32,
+                        device=cx.device)
+    end = torch.empty_like(start)
+    for k, (dx, dy) in enumerate((dx, dy) for dx in (-1, 0, 1)
+                                 for dy in (-1, 0, 1)):
+        shift = (dx * ny + dy) * nz
+        torch.searchsorted(key, first + shift, out_int32=True, out=start[k])
+        torch.searchsorted(key, last + shift, right=True, out_int32=True,
+                           out=end[k])
+        for inside in (inside_x[dx], inside_y[dy]):
+            if inside is not None:              # z-column off the grid
+                start[k].mul_(inside)
+                end[k].mul_(inside)
+    win = torch.stack([start, end - start], -1).transpose(0, 1)
+    return cell.to(torch.int32), win.contiguous()
+
+
 def _ctx_from_sorted(pos_s: torch.Tensor, cx: torch.Tensor, cr: torch.Tensor,
                      src: torch.Tensor, is_real: torch.Tensor, n: int,
-                     grid: CellGrid) -> FofCtx:
+                     ncells: Tuple[int, int, int]) -> FofCtx:
     slots = torch.arange(src.shape[0], device=src.device)
     real_slot = torch.zeros(n, dtype=torch.int64, device=src.device)
     real_slot[src[is_real]] = slots[is_real]
     gslots = torch.nonzero(~is_real).squeeze(1)
     return FofCtx(pos=pos_s.contiguous(), cx=cx, cr=cr, src=src,
                   is_real=is_real, real_slot=real_slot, gslots=gslots,
-                  grs=real_slot[src[gslots]],
-                  windows=block_windows(cx, cr, grid.ncells), n=n)
+                  grs=real_slot[src[gslots]], n=n, ncells=ncells)
 
 
 def build_fof_ctx(pos: torch.Tensor, boxsize: Optional[float],
                   reach: float) -> Tuple[FofCtx, CellGrid]:
-    """Ghost images, cell sort and windows for (N, 3) float32 positions.
+    """Ghost images and cell sort of (N, 3) float32 positions.
     ``reach`` must be >= every linking length later swept on the ctx."""
     n = pos.shape[0]
     src = torch.arange(n, device=pos.device)
@@ -181,7 +243,7 @@ def build_fof_ctx(pos: torch.Tensor, boxsize: Optional[float],
     cr = c[:, 1] * nz + c[:, 2]
     order = torch.argsort(c[:, 0] * (ny * nz) + cr, stable=True)
     return _ctx_from_sorted(pos[order].T, c[order, 0], cr[order], src[order],
-                            order < n, n, grid), grid
+                            order < n, n, grid.ncells), grid
 
 
 def _fixpoint(sweep_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -246,7 +308,7 @@ class SweepFof:
     def __init__(self, pos: torch.Tensor, vel: torch.Tensor,
                  boxsize: Optional[float], reach: float):
         self.vel = vel
-        self.ctx, self.grid = build_fof_ctx(pos, boxsize, reach)
+        self.ctx, _ = build_fof_ctx(pos, boxsize, reach)
 
     def subset(self, keep_orig: torch.Tensor) -> "SweepFof":
         """The slots whose original particle is in ``keep_orig`` (ghosts
@@ -255,17 +317,17 @@ class SweepFof:
         c = self.ctx
         idx = torch.nonzero(keep_orig[c.src]).squeeze(1)
         sub = object.__new__(SweepFof)
-        sub.vel, sub.grid = self.vel, self.grid
+        sub.vel = self.vel
         sub.ctx = _ctx_from_sorted(c.pos[:, idx], c.cx[idx], c.cr[idx],
                                    c.src[idx], c.is_real[idx], c.n,
-                                   self.grid)
+                                   c.ncells)
         return sub
 
     def linked_mask(self, linking_length: float) -> Tuple[torch.Tensor, int]:
         """(keep, nkeep): particles with a neighbour within the linking
         length (any image counts -- ghost rows fold into their source)."""
         c = self.ctx
-        cnt = K.detect(c.pos, c.windows, float(linking_length) ** 2)
+        cnt = K.detect(c.pos, c.detect_windows, float(linking_length) ** 2)
         keep = torch.zeros(c.n, dtype=torch.bool, device=cnt.device)
         keep[c.src[cnt >= 2]] = True
         return keep, int(keep.sum())
@@ -274,8 +336,10 @@ class SweepFof:
               ) -> Tuple[torch.Tensor, int]:
         c = self.ctx
         b2 = float(linking_length) ** 2
+        cell, win = c.sweep_windows
+        pts = K.pack(c.pos.T)
         labels, sweeps = _fixpoint(
-            lambda l: K.sweep3d(c.pos, l.int(), c.windows, b2),
+            lambda l: K.sweep3d(pts, l.int(), cell, win, b2),
             c.gslots, c.grs, torch.arange(c.ns, device=c.src.device))
         telemetry.count("fof3d_sweeps", sweeps)
         return _renumber(labels, c, min_size)
@@ -286,13 +350,13 @@ class SweepFof:
         """6DFOF within nonzero ``groups_orig`` (original order) with the
         per-particle velocity scale ``vscale2_orig``."""
         c = self.ctx
-        grp = groups_orig[c.src].int().contiguous()
+        cell, win = c.sweep_windows
+        pts = K.pack(c.pos.T, groups_orig[c.src].int())
         rivs = 1.0 / torch.clamp_min(vscale2_orig[c.src].float(), 1e-30)
-        vel = self.vel[c.src].T.contiguous().float()
+        vels = K.pack(self.vel[c.src].float(), rivs)
         inv_b2 = 1.0 / float(ell6d) ** 2
         labels, sweeps = _fixpoint(
-            lambda l: K.sweep6d(c.pos, vel, rivs, grp, l.int(), c.windows,
-                                inv_b2),
+            lambda l: K.sweep6d(pts, vels, l.int(), cell, win, inv_b2),
             c.gslots, c.grs, torch.arange(c.ns, device=c.src.device))
         telemetry.count("fof6d_sweeps", sweeps)
         return _renumber(labels, c, min_size)
