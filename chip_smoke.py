@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--n N] [--cli-n N] [--profile PATH]
 
+``--profile`` adds a device-time table by operator and a table of
+synchronised spans of the field search (``fof_breakdown``).
+
 Builds the port's CUDA kernels from ``velociraptor_stf_tpu_torch/kernels/
 csrc`` and drives the port on the card, in phases:
 
@@ -11,10 +14,12 @@ csrc`` and drives the port on the card, in phases:
    pair are read from the library's SASS (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gives it: detect counts and sweep labels exactly
-   equal (rows whose windows are zeroed included), the potential within
+   equal (z-columns emptied in detect's index and rows whose windows are
+   zeroed included), the potential within
    rel 1e-4 (and on a small case at the edges of its launch geometry,
    with eps2 = 0 and a coincident pair); times of both, the time to build
-   each subset's cell windows, pairs tested and needed, and the bound: the
+   detect's column index and each subset's cell windows, pairs tested and
+   needed, each kernel's registers and spills, and the bound: the
    larger of the bytes over the memory rate and the needed pairs'
    operations over their pipe's rate.  The bytes are the function's own
    inputs and outputs, never a kernel's index tables.  A FOF kernel needs
@@ -36,7 +41,7 @@ csrc`` and drives the port on the card, in phases:
    twice, the first time as warm-up; every kernel's launch count over the
    second run must be > 0, the catalog must be well formed and both runs
    must give the same group ids, potentials and property arrays, bit for
-   bit;
+   bit; the peak device memory of the run and of the field search alone;
 5. properties on the card: every group's size, mass and centre against a
    float64 numpy recomputation from the returned group ids (counts exact,
    rel 1e-5); the Plummer halo of tests/test_oracles.py against the
@@ -45,7 +50,10 @@ csrc`` and drives the port on the card, in phases:
 6. the CLI, ``python -m velociraptor_stf_tpu_torch.cli``, on a 128^3
    gadget snapshot with binary output (the card's machine has no h5py):
    the catalog files must parse and hold find_structures' group count on
-   the same snapshot;
+   the same snapshot; then the library API on the same particles as
+   tensors on the card (``api.VelociraptorSession.invoke``): the same
+   group ids, and with ``write_output`` the CLI's ``.catalog_groups``
+   bytes;
 7. the bucket tree: one 1,200,000-member group (above ``MAX_DIRECT``)
    through ``compute_potential`` (the tree) and through the direct kernel;
    the JAX package's tree tolerance against the exact sum (median rel
@@ -103,10 +111,11 @@ PAIR_OP = {"fof_detect": "FSETP", "fof_sweep3d": "FSETP",
            "fof_sweep6d": "FSETP", "potential": "MUFU"}
 # lane operations a linking test needs per pair, by the function's own
 # arithmetic: d2 from coordinate differences (3 subtractions, 3 products,
-# 2 sums) and its compare in 3D; in 6D d2 and dv2, d2*inv_b2 + dv2*rivs
+# 2 sums) and its compare in detect and the 3D sweep; in 6D d2 and dv2,
+# d2*inv_b2 + dv2*rivs
 # (2 products, a sum), its compare and the group compare
-SWEEP_OPS_PER_PAIR = {"fof_sweep3d": 9, "fof_sweep6d": 21}
-SWEEP_MAX_EXCESS = 1.05     # pairs tested / needed allowed to a sweep
+FOF_OPS_PER_PAIR = {"fof_detect": 9, "fof_sweep3d": 9, "fof_sweep6d": 21}
+FOF_MAX_EXCESS = 1.05       # pairs tested / needed allowed to a FOF kernel
 # SASS that is no lane arithmetic: loads and stores, branches and
 # convergence barriers; uniform-datapath instructions (U*) run once a warp
 NOT_LANE_ARITH = ("LD", "ST", "BRA", "BSSY", "BSYNC", "BAR", "EXIT", "NOP",
@@ -142,14 +151,10 @@ def sass_per_pair(lib: Path) -> dict:
                           text=True, check=True, timeout=120).stdout
     line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
-    kernel_of = {"fof_detect": "detect_kernel",
-                 "fof_sweep3d": "sweep3d_kernel",
-                 "fof_sweep6d": "sweep6d_kernel",
-                 "potential": "potential_kernel"}
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split(None, 1)[0]
-        key = next((k for k, v in kernel_of.items() if v in name), None)
+        key = next((k for k, v in KERNEL_OF.items() if v in name), None)
         if key is None:
             continue
         code = [(int(m[1], 16), m[2].split(".")[0], m[3])
@@ -174,6 +179,30 @@ def sass_per_pair(lib: Path) -> dict:
         out[key] = (arith / pairs, sum(best.values()), pairs)
     if set(out) != set(PAIR_OP):
         raise AssertionError(f"SASS: kernels found {sorted(out)}")
+    return out
+
+
+KERNEL_OF = {"fof_detect": "detect_kernel", "fof_sweep3d": "sweep3d_kernel",
+             "fof_sweep6d": "sweep6d_kernel", "potential": "potential_kernel"}
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{kernel: (registers, spill bytes stored + loaded)} from the build's
+    ``-Xptxas -v`` output."""
+    import re
+
+    out = {}
+    blocks = re.split(r"Compiling entry function '", log_text)[1:]
+    for block in blocks:
+        key = next((k for k, v in KERNEL_OF.items()
+                    if v in block.split("'", 1)[0]), None)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if key is not None and regs and spill:
+            out[key] = (int(regs[1]), int(spill[1]) + int(spill[2]))
+    if set(out) != set(KERNEL_OF):
+        raise AssertionError(f"ptxas: kernels found {sorted(out)}")
     return out
 
 
@@ -300,10 +329,11 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
+def check_kernels(torch, np, pos, vel, mass, opt, sass, ptxas, report):
     """Phase 2: every kernel against its plain version at the main path's
     shapes on the 256^3 context; ``sass`` holds each kernel's instructions
-    per pair (``sass_per_pair``)."""
+    per pair (``sass_per_pair``), ``ptxas`` its registers and spill bytes
+    (``ptxas_report``)."""
     from velociraptor_stf_tpu_torch.kernels import R_BLOCK
     from velociraptor_stf_tpu_torch.kernels import fof_sweep as KF
     from velociraptor_stf_tpu_torch.kernels import potential as KP
@@ -318,20 +348,6 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
     b2 = b3d * b3d
     fof = SweepFof(pos, vel, BOXSIZE, reach)
     ctx = fof.ctx
-    # a row block with no windows must give count 0
-    win = ctx.detect_windows.clone()
-    zero_blocks = torch.tensor([0, win.shape[0] // 2, win.shape[0] - 1],
-                               device=win.device)
-    win[zero_blocks] = 0
-
-    def block_pairs(windows, rows):
-        """(row, column) pairs a detect launch scans: rows x the lengths
-        of their block's windows."""
-        per_block = torch.full((windows.shape[0],), R_BLOCK,
-                               dtype=torch.int64, device=windows.device)
-        per_block[-1] = rows - (windows.shape[0] - 1) * R_BLOCK
-        return int((per_block * windows[:, :, 1].long().sum(1)).sum())
-
     def row_lengths(cell, win):
         """(ns,) columns each row of a sweep scans: its cell's windows."""
         return win[:, :, 1].long().sum(1)[cell.long()]
@@ -375,7 +391,9 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
                        "ms_plain_rows": ms_plain_rows,
                        "pairs_tested": pairs, "pairs_needed": needed,
                        "pairs_per_s": pairs / (ms * 1e-3),
-                       "instr_per_pair": sass[name][0], **extra})
+                       "instr_per_pair": sass[name][0],
+                       "registers": ptxas[name][0],
+                       "spill_bytes": ptxas[name][1], **extra})
         log(f"kernel {name}: max_abs_err {err} kernel {ms:.3f} ms "
             f"({rows} rows, {pairs} pairs tested, {needed} needed, "
             f"{pairs / (ms * 1e-3):.4g}/s, {sass[name][0]:.4g} SASS "
@@ -387,19 +405,18 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
                   **extra):
         """A FOF kernel: the pairs it needs are those of each row's 27
         cells (of the same group for the 6D sweep), each at its SASS
-        instructions per pair -- for a sweep the fewer of its own and
-        the function's arithmetic -- over the issue rate."""
+        instructions per pair or the function's arithmetic, whichever is
+        fewer, over the issue rate."""
         needed = stencil_pairs(ctx.cx, ctx.cr, ctx.ncells, grp)
-        per_pair = min(sass[name][0], SWEEP_OPS_PER_PAIR.get(name, math.inf))
+        per_pair = min(sass[name][0], FOF_OPS_PER_PAIR[name])
         ops_ms = needed * per_pair / LANES_PER_S * 1e3
-        if name in SWEEP_OPS_PER_PAIR:
-            log(f"kernel {name}: {sass[name][0]:.4g} SASS lane-instructions "
-                f"per pair, {SWEEP_OPS_PER_PAIR[name]} operations in the "
-                f"function's arithmetic; the bound takes {per_pair:.4g}")
-            if pairs > SWEEP_MAX_EXCESS * needed:
-                raise AssertionError(f"{name}: {pairs} pairs tested, over "
-                                     f"{SWEEP_MAX_EXCESS}x the {needed} "
-                                     "needed")
+        log(f"kernel {name}: {sass[name][0]:.4g} SASS lane-instructions "
+            f"per pair, {FOF_OPS_PER_PAIR[name]} operations in the "
+            f"function's arithmetic; the bound takes {per_pair:.4g}; "
+            f"{ptxas[name][0]} registers, {ptxas[name][1]} spill bytes")
+        if pairs > FOF_MAX_EXCESS * needed:
+            raise AssertionError(f"{name}: {pairs} pairs tested, over "
+                                 f"{FOF_MAX_EXCESS}x the {needed} needed")
         entry(name, fof_src, FOF_REPLACES[name], err, ms, pms, ctx.ns,
               ctx.ns, ms, pairs, needed, ops_ms, nbytes,
               ops_per_pair_bound=per_pair, **extra)
@@ -431,18 +448,62 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, report):
             "lane_efficiency_modelled": eff}
 
     # detect: the full context, as linked_mask runs it
-    got = KF.detect(ctx.pos, win, b2)
-    want = KF.detect_ref(ctx.pos, win, KF.f32(b2))
+    nx, ny, nz = ctx.ncells
+    col, colstart = ctx.detect_index
+
+    def packed():
+        return KF.pack(ctx.pos.T, (ctx.cr % nz).int())
+
+    dpts = packed()
+    # z-columns emptied in the index give no count: with the last two
+    # x-stripes emptied, the rows of the last stripe count nothing
+    emptied = colstart.clone()
+    emptied[(nx - 2) * ny:] = colstart[(nx - 2) * ny]
+    got = KF.detect(dpts, col, emptied, ny, b2)
+    want = KF.detect_ref(dpts, col, emptied, ny, KF.f32(b2))
+    last = ctx.cx == nx - 1
+    if not torch.equal(got, want):
+        raise AssertionError("detect kernel disagrees with detect_ref on "
+                             f"emptied z-columns: {int((got != want).sum())}"
+                             " rows")
+    if not bool(last.any()) or int(got[last].sum()) != 0:
+        raise AssertionError("detect: rows whose z-columns are all empty "
+                             "counted")
+    got = KF.detect(dpts, col, colstart, ny, b2)
+    want = KF.detect_ref(dpts, col, colstart, ny, KF.f32(b2))
     if not torch.equal(got, want):
         raise AssertionError("detect kernel disagrees with detect_ref: "
                              f"{int((got != want).sum())} rows")
-    if int(got[:R_BLOCK].sum()) != 0:
-        raise AssertionError("detect: a block with no windows counted")
-    dw = ctx.detect_windows
-    ms = cuda_ms(torch, lambda: KF.detect(ctx.pos, dw, b2))
-    pms = wall_ms(torch, lambda: KF.detect_ref(ctx.pos, dw, KF.f32(b2)))
-    fof_entry("fof_detect", 0, ms, pms, ctx, nbytes(ctx.pos, got),
-              block_pairs(dw, ctx.ns))
+    ms = cuda_ms(torch, lambda: KF.detect(dpts, col, colstart, ny, b2))
+    pms = wall_ms(torch, lambda: KF.detect_ref(dpts, col, colstart, ny,
+                                               KF.f32(b2)))
+    # what the launch takes besides: the index and the packed rows (each a
+    # second build), beside the block windows of the reference's layout
+    index_ms = wall_ms(torch, lambda: TF.column_index(ctx.cx, ctx.cr,
+                                                      ctx.ncells))
+    pack_ms = wall_ms(torch, packed)
+    TF.block_windows(ctx.cx, ctx.cr, ctx.ncells)
+    block_ms = wall_ms(torch, lambda: TF.block_windows(ctx.cx, ctx.cr,
+                                                       ctx.ncells))
+    batch = 1 << 21
+    tested = sum(int(KF.column_windows(dpts, col, colstart, ny, r0,
+                                       min(r0 + batch, ctx.ns))[:, :, 1]
+                     .sum()) for r0 in range(0, ctx.ns, batch))
+    cells = int(torch.unique_consecutive(
+        ctx.cx * (ny * nz) + ctx.cr).shape[0])
+    columns = int((colstart[1:] > colstart[:-1]).sum())
+    log(f"column index of {ctx.ns} rows ({cells} occupied cells, {columns} "
+        f"occupied of {nx * ny} z-columns): {nbytes(col, colstart)} bytes "
+        f"built in {index_ms:.3f} ms, packed rows {nbytes(dpts)} bytes in "
+        f"{pack_ms:.3f} ms; block windows of {R_BLOCK} rows build in "
+        f"{block_ms:.3f} ms")
+    # bytes: positions in, counts out
+    fof_entry("fof_detect", 0, ms, pms, ctx, nbytes(ctx.pos, got), tested,
+              index_build_ms=index_ms, index_bytes=nbytes(col, colstart),
+              pack_ms=pack_ms, packed_bytes=nbytes(dpts),
+              block_windows_build_ms=block_ms, occupied_cells=cells,
+              occupied_columns=columns, columns=nx * ny)
+    del dpts, got, want, emptied
 
     # sweep3d: the linked subset, first sweep of the fixed point
     keep, _ = fof.linked_mask(b3d)
@@ -636,6 +697,22 @@ def check_catalog(np, res, n: int, minsize: int) -> None:
               "gmaxvel", "gveldisp", "gJ", "Efrac", "Epot", "Mass_profile"):
         if not np.isfinite(res.props[k]).all():
             raise AssertionError(f"main path: property {k} not finite")
+
+
+def fof_peak_gib(torch, opt, pos, vel, mass, dev) -> float:
+    """Peak device memory, in GiB, of one ``search_full_set`` (the "fof"
+    stage of find_structures) with its inputs already on the card and
+    counted."""
+    from velociraptor_stf_tpu_torch.models import halos
+
+    tpos, tvel, tmass = (torch.from_numpy(a).to(dev)
+                         for a in (pos, vel, mass))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    halos.search_full_set(opt, tpos, tvel, tmass, BOXSIZE)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
 
 
 def same_catalog(np, a, b) -> bool:
@@ -833,10 +910,51 @@ def cli_case(torch, np, dev, C, n: int) -> str:
                         len(opt.profile_bin_edges))
         timeline = [ln for ln in proc.stdout.splitlines()
                     if ln.startswith("TIME::total")]
+        api_s = api_case(torch, np, dev, cfg, out, res, spos, svel, smass,
+                         pids, box)
         return (f"{res.ngroups} groups in every file, CLI {wall:.1f} s "
-                f"wall ({timeline[-1] if timeline else 'no TIME line'})")
+                f"wall ({timeline[-1] if timeline else 'no TIME line'}); "
+                f"library API on device tensors: the same group ids and "
+                f".catalog_groups bytes, invoke {api_s:.3f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def api_case(torch, np, dev, cfg: Path, out: str, res, pos, vel, mass, pids,
+             box: float) -> float:
+    """The library API on the CLI phase's particles, handed over as
+    tensors already on the card: ``invoke`` must give find_structures'
+    group ids and, with ``write_output``, the ``.catalog_groups`` bytes the
+    CLI wrote.  Returns invoke's wall seconds."""
+    from velociraptor_stf_tpu_torch import api
+    from velociraptor_stf_tpu_torch.utils import units
+
+    session = api.VelociraptorSession(config=str(cfg))
+    tpos, tvel, tmass = (torch.from_numpy(np.ascontiguousarray(
+        a, np.float32)).to(dev) for a in (pos, vel, mass))
+    tpids = torch.from_numpy(np.ascontiguousarray(pids, np.int64)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = session.invoke(
+        tpos, tvel, tmass, pids=tpids,
+        cosmo=api.CosmoInfo(atime=1.0, littleh=1.0, Omega_m=0.3,
+                            Omega_Lambda=0.7),
+        sim=api.SimInfo(period=box, interparticlespacing=units.
+                        interparticle_spacing(box, len(pids))),
+        outname=out + ".api", write_output=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if got["ngroups"] != res.ngroups or \
+            not np.array_equal(got["group_id"], res.pfof):
+        raise AssertionError(
+            f"library API: {got['ngroups']} groups against "
+            f"{res.ngroups}, "
+            f"{int((got['group_id'] != res.pfof).sum())} ids differ")
+    if Path(out + ".api.catalog_groups").read_bytes() != \
+            Path(out + ".catalog_groups").read_bytes():
+        raise AssertionError("library API: .catalog_groups differs from "
+                             "the CLI's")
+    return wall
 
 
 def tree_case(torch, np, dev, opt):
@@ -873,6 +991,86 @@ def tree_case(torch, np, dev, opt):
     if med >= 0.005 or p99 >= 0.03:
         raise AssertionError(f"tree case: median rel {med}, p99 {p99}")
     return times, med, p99
+
+
+def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
+    """A table of synchronised spans of one ``search_full_set`` (the "fof"
+    stage): every named step of ops/fof_sweep.py and models/halos.py is
+    wrapped, for this one run, by a clock that synchronises the card
+    before and after it.  Times are inclusive of the steps nested in a
+    span (indented below it); "other" is a span's time outside its named
+    steps.  The synchronisation itself lengthens the stage, so the
+    unwrapped stage's time is printed beside the table's total."""
+    from velociraptor_stf_tpu_torch.models import halos
+    from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
+
+    tpos, tvel, tmass = (torch.from_numpy(a).to(dev)
+                         for a in (pos, vel, mass))
+    plain = wall_ms(torch, lambda: halos.search_full_set(
+        opt, tpos, tvel, tmass, BOXSIZE))
+    spans: dict = {}      # path of labels -> (calls, inclusive ms)
+    first: dict = {}      # path -> rank of its first entry
+    stack: list = []
+    wrapped = []
+
+    def wrap(owner, name, label=None):
+        fn = getattr(owner, name)
+        label = label or name
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            path_ = tuple(stack) + (label,)
+            first.setdefault(path_, len(first))
+            stack.append(label)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stack.pop()
+                calls, total = spans.get(path_, (0, 0.0))
+                spans[path_] = (calls + 1,
+                                total + (time.perf_counter() - t0) * 1e3)
+
+        wrapped.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    for name in ("build_fof_ctx", "_ghost_pass", "build_grid",
+                 "limit_columns", "cell_coords", "_ctx_from_sorted",
+                 "column_index", "cell_windows", "_fixpoint", "_renumber"):
+        wrap(TF, name)
+    for name in ("subset", "linked_mask", "fof3d", "fof6d"):
+        wrap(TF.SweepFof, name, f"SweepFof.{name}")
+    for name in ("pack", "detect", "sweep3d", "sweep6d"):
+        wrap(TF.K, name, f"kernels.{name}")
+    wrap(torch, "argsort", "torch.argsort")
+    for name in ("velocity_scales", "finish_6d"):
+        wrap(halos, name)
+    try:
+        total = wall_ms(torch, lambda: halos.search_full_set(
+            opt, tpos, tvel, tmass, BOXSIZE))
+    finally:
+        for owner, name, fn in reversed(wrapped):
+            setattr(owner, name, fn)
+    lines = [f"fof breakdown: search_full_set {total:.3f} ms with every "
+             f"span synchronised, {plain:.3f} ms without; spans (calls, "
+             "inclusive ms):"]
+    top = 0.0
+    for path_ in sorted(spans, key=lambda k: [first[k[:d + 1]]
+                                              for d in range(len(k))]):
+        calls, ms = spans[path_]
+        inner = sum(v[1] for k, v in spans.items()
+                    if len(k) == len(path_) + 1 and k[:-1] == path_)
+        other = f" (other {ms - inner:.3f})" if inner else ""
+        lines.append(f"{'  ' * len(path_)}{path_[-1]:<28s}{calls:4d} "
+                     f"{ms:10.3f}{other}")
+        if len(path_) == 1:
+            top += ms
+    lines.append(f"  {'outside every span':<28s}     {total - top:10.3f}")
+    for ln in lines:
+        log(ln)
+    with open(path, "a") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def profile_run(torch, opt, pos, vel, mass, dev, path: str) -> None:
@@ -959,7 +1157,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log(lib.with_suffix(".log").read_text().strip())
+    build_log = lib.with_suffix(".log").read_text()
+    log(build_log.strip())
+    ptxas = ptxas_report(build_log)
     sass = sass_per_pair(lib)
     for name, (per_pair, loop, pairs) in sass.items():
         log(f"SASS {name}: hot loop of {loop} instructions for {pairs} "
@@ -978,7 +1178,7 @@ def main() -> int:
 
     report: list = []
     t0 = time.perf_counter()
-    check_kernels(torch, np, tpos, tvel, tmass, opt, sass, report)
+    check_kernels(torch, np, tpos, tvel, tmass, opt, sass, ptxas, report)
     log(f"phase 2 kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the small oracle case, exact partition
@@ -1035,6 +1235,8 @@ def main() -> int:
     log(f"launches {json.dumps(counts)} peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; two runs "
         f"equal bit for bit ({len(res.props)} property arrays)")
+    log(f"field search alone (inputs on the card): peak memory "
+        f"{fof_peak_gib(torch, opt, pos, vel, mass, dev):.2f} GiB")
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1064,9 +1266,10 @@ def main() -> int:
     if args.profile:
         tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
         try:
-            profile_run(torch, slice_options(
-                n, C, BOXSIZE, write_slice_config(tmp / "slice.cfg")),
-                pos, vel, mass, dev, args.profile)
+            popt = slice_options(n, C, BOXSIZE,
+                                 write_slice_config(tmp / "slice.cfg"))
+            profile_run(torch, popt, pos, vel, mass, dev, args.profile)
+            fof_breakdown(torch, popt, pos, vel, mass, dev, args.profile)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     log(f"gpu: {card}")

@@ -22,6 +22,7 @@ from velociraptor_stf_tpu.validation import oracles
 
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import halos as thalos
+from velociraptor_stf_tpu_torch.ops import cells
 from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
 
 
@@ -112,12 +113,12 @@ def test_context_matches_reference():
 
 
 def test_windows_are_disjoint_supersets():
-    """Exact-slot block windows (detect's): disjoint per block, and every
-    neighbour of every row lies in its block's windows."""
+    """Exact-slot block windows: disjoint per block, and every neighbour
+    of every row lies in its block's windows."""
     pos, _, _, boxsize = _clustered()
     reach = 0.2 * boxsize / len(pos) ** (1 / 3)
     ctx, _ = TF.build_fof_ctx(_t(pos), boxsize, reach)
-    w = ctx.detect_windows.long().numpy()
+    w = TF.block_windows(ctx.cx, ctx.cr, ctx.ncells).long().numpy()
     cover = np.zeros((w.shape[0], ctx.ns), np.int32)
     for b in range(w.shape[0]):
         for s, c in w[b]:
@@ -131,11 +132,12 @@ def test_windows_are_disjoint_supersets():
 
 
 def test_each_context_builds_only_its_windows_once(monkeypatch):
-    """The field search builds block windows once, for detect on the full
-    context, and cell windows once for each subset its fixed points sweep
-    (the linked subset, then the 6D subset), however many sweeps run."""
+    """The field search builds the column index once, for detect on the
+    full context, and cell windows once for each subset its fixed points
+    sweep (the linked subset, then the 6D subset), however many sweeps
+    run; it builds no block windows."""
     calls, sweeps = [], []
-    for name in ("block_windows", "cell_windows"):
+    for name in ("block_windows", "column_index", "cell_windows"):
         fn = getattr(TF, name)
         monkeypatch.setattr(TF, name, lambda cx, *a, _fn=fn, _name=name: (
             calls.append((_name, int(cx.shape[0]))) or _fn(cx, *a)))
@@ -146,7 +148,7 @@ def test_each_context_builds_only_its_windows_once(monkeypatch):
     pos, vel, mass, boxsize = _mock()
     got = _port_search(_opts(boxsize, len(pos)), pos, vel, mass, boxsize)
     assert got.ngroups > 0
-    assert [c[0] for c in calls] == ["block_windows", "cell_windows",
+    assert [c[0] for c in calls] == ["column_index", "cell_windows",
                                      "cell_windows"]
     assert calls[0][1] > calls[1][1] > calls[2][1]
     assert sweeps.count("sweep3d") >= 2 and sweeps.count("sweep6d") >= 2
@@ -176,6 +178,58 @@ def test_linked_mask_matches_kdtree():
     truth[pairs.ravel()] = True
     np.testing.assert_array_equal(keep.numpy(), truth)
     assert nkeep == truth.sum()
+
+
+def test_limit_columns_halves_only_what_exceeds():
+    """nx and ny halve together until nx * ny fits, nz only above its own
+    cap; the extent stays, and a grid within both limits comes back as it
+    is."""
+    grid = cells.build_grid(np.zeros(3), np.array([100.0, 50.0, 1e4]), 0.1)
+    assert grid.ncells == (1000, 500, 100000)
+    assert cells.limit_columns(grid, 500000) is grid
+    got = cells.limit_columns(grid, 499999, max_depth=30000)
+    assert got.ncells == (500, 250, 25000) and got.origin == grid.origin
+    np.testing.assert_allclose(np.array(got.width) * got.ncells,
+                               np.array(grid.width) * grid.ncells, rtol=1e-12)
+    assert cells.limit_columns(grid, 0).ncells == (1, 1, 100000)
+    assert cells.limit_columns(grid, 3).ncells == (3, 1, 100000)
+    thin = cells.limit_columns(grid._replace(ncells=(1000, 1, 7)), 100)
+    assert thin.ncells == (62, 1, 7)
+
+
+def test_uneven_open_domain_gets_wider_cells_and_equal_groups(monkeypatch):
+    """Two clumps far apart in an open domain: the grid at the linking
+    length would have far more z-columns than slots, so the context
+    halves nx and ny until they number at most four a slot.  The groups
+    equal those on the uncoarsened grid, and the brute-force links."""
+    rng = np.random.default_rng(12)
+    ll = 0.05
+    pos = np.vstack([rng.normal(0.0, 0.4, (1500, 3)),
+                     rng.normal(400.0, 0.4, (1500, 3))]).astype(np.float32)
+    vel = np.zeros_like(pos)
+    n = len(pos)
+
+    def run():
+        fof = TF.SweepFof(_t(pos), _t(vel), None, ll)
+        keep, nkeep = fof.linked_mask(ll)
+        pfof, ng = fof.subset(keep).fof3d(ll, 5)
+        return fof.ctx, keep, pfof, ng
+
+    ctx, keep, pfof, ng = run()
+    nx, ny, nz = ctx.ncells
+    assert nx * ny <= TF.MAX_COLUMNS_PER_SLOT * n < 1000 * nz
+    assert ctx.detect_index[1].shape == (nx * ny + 1,)
+    monkeypatch.setattr(TF, "MAX_COLUMNS_PER_SLOT", 10**9)
+    ctx0, keep0, pfof0, ng0 = run()
+    assert ctx0.ncells[0] * ctx0.ncells[1] > 1000 * n
+    assert ctx0.ncells[2] == nz
+    assert ng == ng0 > 10
+    assert torch.equal(keep, keep0) and torch.equal(pfof, pfof0)
+    pairs = cKDTree(pos.astype(np.float64)).query_pairs(
+        ll, output_type="ndarray")
+    truth = np.zeros(n, bool)
+    truth[pairs.ravel()] = True
+    np.testing.assert_array_equal(keep.numpy(), truth)
 
 
 @pytest.mark.parametrize("geometry", ["cosmo_mock", "clustered_dense"])

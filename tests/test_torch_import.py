@@ -77,7 +77,7 @@ from velociraptor_stf_tpu_torch.kernels import _build, fof_sweep, potential
 from velociraptor_stf_tpu_torch.models import (halos, pipeline, properties,
                                                unbind)
 from velociraptor_stf_tpu_torch.ops import cells, gravity, segments, so
-from velociraptor_stf_tpu_torch import cli
+from velociraptor_stf_tpu_torch import api, cli, particles
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",
                                  "fof_sweep6d", "potential"}
@@ -134,6 +134,38 @@ print("OK")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_library_api_runs_without_jax():
+    """``api.VelociraptorSession.invoke`` on a ``ParticleSet`` of tensors
+    on the CPU with jax never imported, catalog written."""
+    code = """
+import sys, tempfile, os
+import numpy as np
+from velociraptor_stf_tpu_torch import api
+from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
+from velociraptor_stf_tpu_torch.particles import ParticleSet
+
+n, box = 4096, 20.0
+pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=6, seed=3)
+session = api.VelociraptorSession(config_text=(
+    open("examples/sample_dmcosmological_run.cfg").read() +
+    "\\nFoF_Field_search_type=4\\nSearch_for_substructure=0\\n"
+    "Bound_halos=1\\nBinary_output=1\\nMinimum_halo_size=32\\n"))
+out = os.path.join(tempfile.mkdtemp(), "cat")
+ps = ParticleSet.from_numpy(pos, vel, mass, pid=np.arange(1, len(pos) + 1))
+res = session.invoke(ps, sim=api.SimInfo(
+    period=box, interparticlespacing=box / n ** (1 / 3)), outname=out,
+    write_output=True, device="cpu")
+assert res["ngroups"] > 0 and res["group_id"].shape == (len(pos),)
+for ext in (".properties", ".catalog_groups", ".catalog_particles"):
+    assert os.path.getsize(out + ext) > 0, ext
+""" + NO_JAX_PACKAGE + """
+print("OK", res["ngroups"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
 
 
 def _imports(path: Path, root: Path = REPO):

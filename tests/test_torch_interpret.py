@@ -52,10 +52,26 @@ def test_detect_matches_pallas(box, monkeypatch):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(PF._make_detect_3d(jctx.ns_pad, b * b)(
             jctx.ranges, jctx.cols_p, jctx.cols_p))[0, :tctx.ns]
-    got = KF.detect_ref(tctx.pos, tctx.detect_windows,
-                        KF.f32(b * b)).numpy()
+    _, ny, nz = tctx.ncells
+    col, colstart = tctx.detect_index
+    got = KF.detect_ref(KF.pack(tctx.pos.T, (tctx.cr % nz).int()), col,
+                        colstart, ny, KF.f32(b * b)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got >= 1).all() and (got >= 2).any()
+
+
+def test_linked_mask_matches_pallas(box, monkeypatch):
+    """``SweepFof.linked_mask`` (detect through the column index, ghost
+    rows folded into their source) against the JAX ``_linked_mask`` with
+    its Pallas detect kernel in the interpreter."""
+    monkeypatch.setenv("VR_FOF_PALLAS", "1")
+    pos, vel, _, b, jctx, _ = box
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(PF._linked_mask(jctx, jctx.ns_pad, b * b)[0])
+    fof = TF.SweepFof(torch.from_numpy(pos), torch.from_numpy(vel), BOX, b)
+    keep, nkeep = fof.linked_mask(b)
+    np.testing.assert_array_equal(keep.numpy(), want)
+    assert 0 < nkeep == int(want.sum()) < N
 
 
 def test_sweep3d_matches_pallas(box, monkeypatch):

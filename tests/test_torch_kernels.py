@@ -44,6 +44,14 @@ def _cloud(seed=0, n=3000, box=10.0):
     return ctx, ll
 
 
+def _detect_args(ctx):
+    """(pts, col, colstart, ny) of ``detect`` on a context, as
+    ``SweepFof.linked_mask`` forms them."""
+    _, ny, nz = ctx.ncells
+    col, colstart = ctx.detect_index
+    return KF.pack(ctx.pos.T, (ctx.cr % nz).int()), col, colstart, ny
+
+
 def _brute_d2(p):
     d = p[:, None, :] - p[None, :, :]
     d2 = d[..., 0] * d[..., 0]
@@ -56,7 +64,7 @@ def test_plain_fof_versions_match_brute_force():
     p = ctx.pos.T
     b2 = KF.f32(ll * ll)
     link = _brute_d2(p) <= b2
-    cnt = KF.detect_ref(ctx.pos, ctx.detect_windows, b2)
+    cnt = KF.detect_ref(*_detect_args(ctx), b2)
     assert torch.equal(cnt, link.sum(1, dtype=torch.int32))
     lab = torch.randperm(ctx.ns, generator=torch.Generator().manual_seed(1)
                          ).int()
@@ -95,26 +103,114 @@ def _faces(seed=8, box=6.0):
                      ).astype(np.float32)
 
 
-@pytest.mark.parametrize("geometry", ["clumped_periodic", "open", "faces"])
-def test_cell_windows_are_exact(geometry):
-    """Every row's nine cell windows are disjoint, hold exactly the slots
-    of the 27 cells around its cell (so their total length is those
-    cells' occupancy), and so every slot within reach; z-columns off the
-    grid and z beyond its ends add nothing."""
+def _geometry(name):
+    """(context, grid, reach) of a clustered periodic box with ghosts, an
+    open box, the box-face points, or a slab one cell thick along an
+    axis."""
     rng = np.random.default_rng(7)
-    if geometry == "clumped_periodic":
+    if name == "clumped_periodic":
         box, reach = 10.0, 0.4
         pos = np.vstack([rng.normal(5.0, 0.3, (1000, 3)),
                          rng.normal(0.2, 0.3, (500, 3)) % box,
                          rng.uniform(0, box, (1000, 3))]).astype(np.float32)
         ctx, grid = TF.build_fof_ctx(torch.from_numpy(pos), box, reach)
         assert (~ctx.is_real).any()                  # ghosts in outer cells
+    elif name.startswith("thin_"):
+        reach = 0.4
+        pos = np.vstack([rng.normal(3.0, 0.3, (600, 3)),
+                         rng.uniform(0, 10, (900, 3))])
+        axis = "xyz".index(name[-1])
+        pos[:, axis] = rng.uniform(0, 0.3, len(pos))
+        ctx, grid = TF.build_fof_ctx(
+            torch.from_numpy(pos.astype(np.float32)), None, reach)
+        assert grid.ncells[axis] == 1
     else:
-        reach = 0.4 if geometry == "open" else 0.5
+        reach = 0.4 if name == "open" else 0.5
         pos = (np.vstack([rng.normal(3.0, 0.3, (1200, 3)),
                           rng.uniform(0, 10, (1200, 3))]).astype(np.float32)
-               if geometry == "open" else _faces())
+               if name == "open" else _faces())
         ctx, grid = TF.build_fof_ctx(torch.from_numpy(pos), None, reach)
+    assert grid.ncells == ctx.ncells
+    return ctx, grid, reach
+
+
+@pytest.mark.parametrize("geometry", ["clumped_periodic", "open", "faces",
+                                      "thin_x", "thin_y", "thin_z"])
+def test_column_index_is_exact(geometry):
+    """Each z-column's range holds exactly its slots, sorted on their z
+    cell, and an empty column has an empty range; the windows a row scans
+    through the index are disjoint and hold exactly the slots of its 27
+    cells; the plain detect counts equal brute force."""
+    ctx, grid, reach = _geometry(geometry)
+    nx, ny, nz = grid.ncells
+    col, colstart = TF.column_index(ctx.cx, ctx.cr, grid.ncells)
+    assert col.dtype == colstart.dtype == torch.int32
+    assert colstart.shape == (nx * ny + 1,)
+    c = np.stack([ctx.cx.numpy(), ctx.cr.numpy() // nz,
+                  ctx.cr.numpy() % nz], 1)
+    np.testing.assert_array_equal(col.numpy(), c[:, 0] * ny + c[:, 1])
+    occupancy = np.bincount(col.numpy(), minlength=nx * ny)
+    np.testing.assert_array_equal(np.diff(colstart.numpy()), occupancy)
+    assert colstart[0] == 0 and colstart[-1] == ctx.ns
+    if geometry in ("clumped_periodic", "open"):
+        assert (occupancy == 0).any()               # empty z-columns
+    for k in np.nonzero(occupancy)[0][:200]:
+        rows = slice(int(colstart[k]), int(colstart[k + 1]))
+        assert (col.numpy()[rows] == k).all()
+        assert (np.diff(c[rows, 2]) >= 0).all()
+    pts, col, colstart, ny = _detect_args(ctx)
+    assert torch.equal(pts.view(torch.int32)[:, 3],
+                       torch.from_numpy(c[:, 2]).int())
+    ns = ctx.ns
+    w = KF.column_windows(pts, col, colstart, ny, 0, ns).numpy()
+    rows = np.repeat(np.arange(ns), 9)
+    diff = np.zeros((ns, ns + 1), np.int32)
+    np.add.at(diff, (rows, w[:, :, 0].ravel()), 1)
+    np.add.at(diff, (rows, (w[:, :, 0] + w[:, :, 1]).ravel()), -1)
+    cover = np.cumsum(diff, 1)[:, :ns]
+    assert cover.max() == 1                                  # disjoint
+    near = (np.abs(c[:, None, :] - c[None, :, :]) <= 1).all(-1)
+    np.testing.assert_array_equal(cover == 1, near)         # the 27 cells
+    assert (w[:, :, 1] == 0).any()          # some z-column off the grid
+    # rows [r0, r1) alone give the same windows
+    np.testing.assert_array_equal(
+        KF.column_windows(pts, col, colstart, ny, 100, 300).numpy(),
+        w[100:300])
+    b2 = KF.f32(reach * reach)
+    want = (_brute_d2(ctx.pos.T) <= b2).sum(1, dtype=torch.int32)
+    assert torch.equal(KF.detect_ref(pts, col, colstart, ny, b2), want)
+    assert torch.equal(KF.detect_ref(pts, col, colstart, ny, b2,
+                                     rows_per_batch=257), want)
+    assert (want >= 2).any() and (want == 1).any()
+
+
+def test_detect_counts_nothing_in_an_emptied_column():
+    """Z-columns whose range is emptied in the index give no count: with
+    the last two x-stripes emptied, the rows of the last stripe (whose
+    every neighbour column is empty) count 0, and the rest lose exactly
+    their neighbours in those stripes."""
+    ctx, grid, reach = _geometry("open")
+    nx, ny, nz = grid.ncells
+    pts, col, colstart, ny = _detect_args(ctx)
+    b2 = KF.f32(reach * reach)
+    emptied = colstart.clone()
+    emptied[(nx - 2) * ny:] = colstart[(nx - 2) * ny]
+    got = KF.detect(pts, col, emptied, ny, b2)
+    link = _brute_d2(ctx.pos.T) <= b2
+    link &= (ctx.cx < nx - 2)[None, :]
+    assert torch.equal(got, link.sum(1, dtype=torch.int32))
+    last = ctx.cx == nx - 1
+    assert last.any() and not got[last].any()
+    assert got[ctx.cx == nx - 3].any()
+
+
+@pytest.mark.parametrize("geometry", ["clumped_periodic", "open", "faces"])
+def test_cell_windows_are_exact(geometry):
+    """Every row's nine cell windows are disjoint, hold exactly the slots
+    of the 27 cells around its cell (so their total length is those
+    cells' occupancy), and so every slot within reach; z-columns off the
+    grid and z beyond its ends add nothing."""
+    ctx, grid, reach = _geometry(geometry)
     nx, ny, nz = grid.ncells
     cell, win = TF.cell_windows(ctx.cx, ctx.cr, grid.ncells)
     assert cell.dtype == win.dtype == torch.int32
@@ -301,11 +397,10 @@ def test_stencil_pairs_count_each_rows_27_cells(groups):
     cell, win = ctx.sweep_windows
     tested = int(win[cell.long(), :, 1].long().sum())
     assert tested == got if not groups else tested > got
-    # detect's block windows hold every such pair
-    w = ctx.detect_windows
-    assert got <= int(sum(int(w[b, :, 1].sum()) *
-                          min(R_BLOCK, ctx.ns - b * R_BLOCK)
-                          for b in range(w.shape[0])))
+    # detect's windows through the column index hold exactly those pairs
+    w = KF.column_windows(*_detect_args(ctx), 0, ctx.ns)
+    assert int(w[:, :, 1].sum()) == int(near.sum()) if not groups \
+        else int(w[:, :, 1].sum()) > got
 
 
 _SASS = """
@@ -346,13 +441,27 @@ def test_sass_per_pair_reads_the_innermost_scan(monkeypatch):
 def test_wrappers_reject_bad_arguments():
     ctx, ll = _cloud(n=600)
     lab = torch.arange(ctx.ns, dtype=torch.int32)
-    bw = ctx.detect_windows
+    bw = TF.block_windows(ctx.cx, ctx.cr, ctx.ncells)
+    dpts, col, colstart, ny = _detect_args(ctx)
     with pytest.raises(TypeError):
-        KF.detect(ctx.pos.double(), bw, ll * ll)
+        KF.detect(dpts.double(), col, colstart, ny, ll * ll)
+    with pytest.raises(ValueError):                  # unpacked positions
+        KF.detect(ctx.pos, col, colstart, ny, ll * ll)
+    with pytest.raises(ValueError):                  # not 16-byte aligned
+        KF.detect(torch.zeros(ctx.ns * 4 + 1)[1:].view(ctx.ns, 4), col,
+                  colstart, ny, ll * ll)
+    with pytest.raises(TypeError):
+        KF.detect(dpts, col.long(), colstart, ny, ll * ll)
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos.T, bw, ll * ll)
+        KF.detect(dpts, col[1:], colstart, ny, ll * ll)
+    with pytest.raises(TypeError):
+        KF.detect(dpts, col, colstart.long(), ny, ll * ll)
+    with pytest.raises(ValueError):                  # not nx * ny + 1 starts
+        KF.detect(dpts, col, colstart[:-1], ny, ll * ll)
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos, bw[:-1], ll * ll)
+        KF.detect(dpts, col, colstart, 0, ll * ll)
+    with pytest.raises(ValueError):                  # a block-window array
+        KF.detect(dpts, col, bw, ny, ll * ll)
     cell, win = ctx.sweep_windows
     pts = KF.pack(ctx.pos.T)
     vels = KF.pack(torch.zeros(ctx.ns, 3), torch.ones(ctx.ns))
@@ -429,17 +538,49 @@ def test_sweeps_reject_windows_out_of_range(sweep, fault):
         run()
 
 
+@pytest.mark.parametrize("fault", ["column past the index",
+                                   "negative column", "decreasing starts",
+                                   "negative start", "start past the rows"])
+def test_detect_rejects_an_index_out_of_range(fault):
+    """A z-column outside the index, or starts that decrease or leave the
+    rows, are refused before any scan (the kernel would read out of
+    bounds), also when the index of a passing call is changed in place."""
+    ctx, ll = _cloud(n=600)
+    pts, col, colstart, ny = _detect_args(ctx)
+    col, colstart = col.clone(), colstart.clone()
+    KF.detect(pts, col, colstart, ny, ll * ll)
+    if fault == "column past the index":
+        col[5] = colstart.shape[0] - 1
+    elif fault == "negative column":
+        col[0] = -1
+    elif fault == "decreasing starts":
+        c = int(col[ctx.ns // 2])
+        colstart[c] = colstart[c + 1] + 1
+    elif fault == "negative start":
+        colstart[0] = -1
+    else:
+        colstart[-1] = ctx.ns + 1
+    with pytest.raises(ValueError):
+        KF.detect(pts, col, colstart, ny, ll * ll)
+
+
 @pytest.mark.gpu
 def test_cuda_fof_kernels_match_plain(cuda):
     ctx, ll = _cloud(n=20000)
     b2 = KF.f32(ll * ll)
     pos = ctx.pos.to(cuda)
-    bw = ctx.detect_windows.clone()
-    bw[1] = 0                                 # a block with no windows
-    bw = bw.to(cuda)
-    cnt = KF.detect(pos, bw, b2)
-    assert torch.equal(cnt, KF.detect_ref(pos, bw, b2))
-    assert int(cnt[R_BLOCK:2 * R_BLOCK].sum()) == 0
+    nx, ny, _ = ctx.ncells
+    dpts, col, colstart, ny = (t.to(cuda) if isinstance(t, torch.Tensor)
+                               else t for t in _detect_args(ctx))
+    cnt = KF.detect(dpts, col, colstart, ny, b2)
+    assert torch.equal(cnt, KF.detect_ref(dpts, col, colstart, ny, b2))
+    assert int(cnt.max()) > 100 and int(cnt.min()) == 1
+    emptied = colstart.clone()                # the last two x-stripes
+    emptied[(nx - 2) * ny:] = colstart[(nx - 2) * ny]
+    cnt = KF.detect(dpts, col, emptied, ny, b2)
+    assert torch.equal(cnt, KF.detect_ref(dpts, col, emptied, ny, b2))
+    last = (ctx.cx == nx - 1).to(cuda)
+    assert bool(last.any()) and int(cnt[last].sum()) == 0
     cell, win = (t.to(cuda) for t in ctx.sweep_windows)
     win = win.clone()
     zero = torch.tensor([0, ctx.ns // 2, ctx.ns - 1], device=cuda)
@@ -501,10 +642,13 @@ def test_cuda_wrappers_count_launches_and_reject_cpu_windows(cuda):
 
     ctx, ll = _cloud(n=2000)
     kernels.reset_launches()
-    KF.detect(ctx.pos.to(cuda), ctx.detect_windows.to(cuda), ll * ll)
+    dpts, col, colstart, ny = _detect_args(ctx)
+    KF.detect(dpts.to(cuda), col.to(cuda), colstart.to(cuda), ny, ll * ll)
     assert kernels.LAUNCHES["fof_detect"] == 1
     with pytest.raises(ValueError):
-        KF.detect(ctx.pos.to(cuda), ctx.detect_windows, ll * ll)
+        KF.detect(dpts.to(cuda), col.to(cuda), colstart, ny, ll * ll)
+    with pytest.raises(ValueError):
+        KF.detect(dpts.to(cuda), col, colstart.to(cuda), ny, ll * ll)
     assert kernels.LAUNCHES["fof_detect"] == 1
     cell, win = ctx.sweep_windows
     pts = KF.pack(ctx.pos.T).to(cuda)

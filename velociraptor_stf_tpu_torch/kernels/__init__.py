@@ -10,9 +10,9 @@ Importing this package needs neither nvcc nor a GPU (``_build`` compiles the
 library at the first launch).
 """
 
-# Rows per thread block of the FOF kernels (one row per thread); their plain
-# versions and coverage windows, and the potential's plain version, use the
-# same row blocks.  The potential kernel's own geometry is in potential.py.
+# Rows per block of the plain versions' tiles (``_common.window_tiles``, the
+# potential's plain version) and of ``ops/fof_sweep.py::block_windows``.  The
+# kernels' own launch geometry is in their sources and in potential.py.
 R_BLOCK = 256
 
 LAUNCHES = {"fof_detect": 0, "fof_sweep3d": 0, "fof_sweep6d": 0,

@@ -37,8 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every launching entry point returns cudaGetLastError() after its launch
 _SIGNATURES = {
-    # (pos, ns, windows, b2, out, stream)
-    "vr_fof_detect": (_P, _I, _P, _F, _P, _P),
+    # (packed (x, y, z, z cell), z-column, column starts, ns, nx, ny, b2,
+    #  out, stream)
+    "vr_fof_detect": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     # (packed (x, y, z, .), labels, cell, cell windows, ns, b2, out, stream)
     "vr_fof_sweep3d": (_P, _P, _P, _P, _I, _F, _P, _P),
     # (packed (x, y, z, grp), packed (vx, vy, vz, rivs), labels, cell,

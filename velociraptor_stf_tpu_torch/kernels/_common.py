@@ -4,7 +4,7 @@ kernel wrappers and their plain PyTorch versions."""
 from __future__ import annotations
 
 import weakref
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,29 +37,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def check_rows(pos: torch.Tensor, nwin: int,
-               windows: torch.Tensor) -> int:
-    """Validate the (3, ns) float32 positions and the (nblocks, nwin, 2)
-    int32 windows of one launch; return ns."""
-    if pos.dim() != 2 or pos.shape[0] != 3:
-        raise ValueError(f"pos: expected shape (3, ns), got "
-                         f"{tuple(pos.shape)}")
-    ns = int(pos.shape[1])
-    if ns >= 2**31:
-        raise ValueError(f"{ns} rows exceed the kernels' int32 indexing")
-    require(pos, "pos", torch.float32, (3, ns), pos.device)
-    nblocks = -(-ns // R_BLOCK)
-    require(windows, "windows", torch.int32, (nblocks, nwin, 2), pos.device)
-    return ns
-
-
-def check_cells(pts: torch.Tensor, nwin: int, cell: torch.Tensor,
-                win: torch.Tensor) -> int:
-    """Validate the (ns, 4) float32 packed rows, the (ns,) int32 cell of
-    each row and the (ncell, nwin, 2) int32 cell windows of one launch,
-    and that their contents stay in range; return ns.  The kernels load a
-    row as one float4 and a window as one int2, so both tensors must be
-    aligned to their load."""
+def _packed_rows(pts: torch.Tensor) -> int:
+    """Validate (ns, 4) float32 packed rows, which the kernels load as one
+    float4 each; return ns."""
     if pts.dim() != 2 or pts.shape[1] != 4:
         raise ValueError(f"pts: expected shape (ns, 4), got "
                          f"{tuple(pts.shape)}")
@@ -67,32 +47,69 @@ def check_cells(pts: torch.Tensor, nwin: int, cell: torch.Tensor,
     if ns >= 2**31:
         raise ValueError(f"{ns} rows exceed the kernels' int32 indexing")
     require(pts, "pts", torch.float32, (ns, 4), pts.device)
+    if pts.data_ptr() % 16:
+        raise ValueError("pts must be 16-byte aligned")
+    return ns
+
+
+def check_columns(pts: torch.Tensor, col: torch.Tensor,
+                  colstart: torch.Tensor, ny: int) -> Tuple[int, int]:
+    """Validate the (ns, 4) float32 packed rows, the (ns,) int32 z-column
+    of each row and the (nx * ny + 1,) int32 column starts of one detect
+    launch, and that their contents stay in range; return (ns, nx)."""
+    ns = _packed_rows(pts)
+    require(col, "col", torch.int32, (ns,), pts.device)
+    if colstart.dim() != 1 or ny < 1 or (colstart.shape[0] - 1) % ny or \
+            colstart.shape[0] < 2:
+        raise ValueError(f"colstart: expected shape (nx * {ny} + 1,), got "
+                         f"{tuple(colstart.shape)}")
+    ncol = int(colstart.shape[0]) - 1
+    require(colstart, "colstart", torch.int32, (ncol + 1,), pts.device)
+    _once(col, colstart, ns, lambda: _check_column_contents(col, colstart,
+                                                            ns))
+    return ns, ncol // ny
+
+
+def check_cells(pts: torch.Tensor, nwin: int, cell: torch.Tensor,
+                win: torch.Tensor) -> int:
+    """Validate the (ns, 4) float32 packed rows, the (ns,) int32 cell of
+    each row and the (ncell, nwin, 2) int32 cell windows of one launch,
+    and that their contents stay in range; return ns.  The kernels load a
+    window as one int2, so ``win`` must be aligned to it."""
+    ns = _packed_rows(pts)
     require(cell, "cell", torch.int32, (ns,), pts.device)
     if win.dim() != 3:
         raise ValueError(f"win: expected shape (ncell, {nwin}, 2), got "
                          f"{tuple(win.shape)}")
     require(win, "win", torch.int32, (win.shape[0], nwin, 2), pts.device)
-    if pts.data_ptr() % 16 or win.data_ptr() % 8:
-        raise ValueError("pts must be 16-byte and win 8-byte aligned")
-    _check_cell_contents(cell, win, ns)
+    if win.data_ptr() % 8:
+        raise ValueError("win must be 8-byte aligned")
+    _once(cell, win, ns, lambda: _check_cell_contents(cell, win, ns))
     return ns
 
 
-# win -> (cell, the versions of both and ns) of a pair whose contents
-# passed ``_check_cell_contents``; an in-place change bumps a version
+# table -> (per-row tensor, the versions of both and ns) of a pair whose
+# contents passed their check; an in-place change bumps a version
 _CHECKED = WeakIdKeyDictionary()
+
+
+def _once(rows: torch.Tensor, table: torch.Tensor, ns: int,
+          check: Callable[[], None]) -> None:
+    """Run ``check`` (which raises on bad contents, with one host sync)
+    unless it passed for this pair of tensors and neither has changed
+    since, so the launches over one index pay it once."""
+    stamp = (rows._version, table._version, ns)
+    seen = _CHECKED.get(table)
+    if seen is not None and seen[0]() is rows and seen[1] == stamp:
+        return
+    check()
+    _CHECKED[table] = (weakref.ref(rows), stamp)
 
 
 def _check_cell_contents(cell: torch.Tensor, win: torch.Tensor,
                          ns: int) -> None:
     """Raise unless every cell number indexes ``win`` and every window
-    (start, count) lies in [0, ns): the kernels would read out of bounds.
-    Checked once per pair of tensors until one changes, with one host
-    sync, so the sweeps of a fixed point over the same windows pay it once."""
-    stamp = (cell._version, win._version, ns)
-    seen = _CHECKED.get(win)
-    if seen is not None and seen[0]() is cell and seen[1] == stamp:
-        return
+    (start, count) lies in [0, ns): the kernels would read out of bounds."""
     bad = torch.zeros(2, dtype=torch.bool, device=cell.device)
     if cell.numel():
         lo, hi = torch.aminmax(cell)
@@ -106,7 +123,25 @@ def _check_cell_contents(cell: torch.Tensor, win: torch.Tensor,
         raise ValueError(f"cell: a cell number outside [0, {win.shape[0]})")
     if win_bad:
         raise ValueError(f"win: a window outside the {ns} rows")
-    _CHECKED[win] = (weakref.ref(cell), stamp)
+
+
+def _check_column_contents(col: torch.Tensor, colstart: torch.Tensor,
+                           ns: int) -> None:
+    """Raise unless every row's z-column indexes ``colstart`` and the
+    starts run from at least 0, never decreasing, to at most ns: the
+    kernel would read out of bounds."""
+    ncol = colstart.shape[0] - 1
+    bad = torch.zeros(2, dtype=torch.bool, device=col.device)
+    if col.numel():
+        lo, hi = torch.aminmax(col)
+        bad[0] = (lo < 0) | (hi >= ncol)
+    bad[1] = ((colstart[0] < 0) | (colstart[-1] > ns) |
+              (colstart[1:] < colstart[:-1]).any())
+    col_bad, start_bad = bad.tolist()
+    if col_bad:
+        raise ValueError(f"col: a z-column outside [0, {ncol})")
+    if start_bad:
+        raise ValueError(f"colstart: not non-decreasing within [0, {ns}]")
 
 
 def kernel_device(t: torch.Tensor) -> bool:

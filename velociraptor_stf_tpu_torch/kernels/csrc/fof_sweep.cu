@@ -6,7 +6,8 @@
 //   vr_fof_sweep6d <- _sweep_kernel_6d  (:680)  min label over the 6D phase
 //                     criterion within the same nonzero 3DFOF group
 // Plain PyTorch versions with the same semantics: kernels/fof_sweep.py.
-// Particles are cell-sorted on (cx, cy*nz + cz) (ops/fof_sweep.py).
+// Particles are cell-sorted on (cx, cy*nz + cz) (ops/fof_sweep.py) and
+// come as packed float4 rows, one 16-byte load per column.
 //
 // Rounding.  Link decisions must round like the plain version: d2 is built
 // from coordinate differences as dx*dx, then + dy*dy, then + dz*dz, every
@@ -14,12 +15,32 @@
 // contract these into FMAs (an FMA moves pairs across d = b).  The 6D test
 // is d2*inv_b2 + dv2*rivs_row <= 1, both products rounded, then the sum.
 //
-// detect_kernel (not changed by the sweeps' cell windows).  SoA positions
-// pos = [x(ns) | y(ns) | z(ns)]; row block b holds rows [b*R, b*R + R) and
-// owns NWIN disjoint windows win[b][k] = (start, count) from the block's
-// first cell to its last (disjoint, or a column would count twice).  One
-// thread block per row block, one row per thread; the block stages R
-// columns at a time into shared memory and every thread scans the tile.
+// detect_kernel.  It runs once, on the full context: every particle and
+// ghost image, most of them background particles alone in their cell, so
+// a table per occupied cell (what the sweeps take) would cost more to
+// build than the scan itself.  The sort order gives the row's candidates
+// without one: the slots of a z-column (cx, cy) are contiguous and sorted
+// on their z cell, so the index is one start per z-column, colstart
+// (nx*ny + 1 entries, a few MB that stay in L2).  Rows are packed
+// (x, y, z, z cell bits), col[row] = cx*ny + cy.  One row per thread,
+// consecutive rows in a warp (one z-column, or neighbouring ones: their
+// ranges overlap and stay in L1).  For each of its nine z-columns on the
+// grid a row reads the column's range, finds by binary search inside it the
+// first slot whose z cell is at least cz-1 (ranges hold about ten slots in
+// the field and thousands through a halo core; the search keeps a core row
+// from scanning its whole column) and scans forward while the z cell is at
+// most cz+1: exactly the slots of its 27 cells.  A z-column off the grid
+// is skipped (a y offset off the grid would land in the next x-stripe's
+// columns).  The z cell rides in the row's fourth lane, so the cell test
+// costs no second load.  No shared tile (an occupied cell holds about one
+// slot), no atomics: each thread writes its own count.
+//   What bounds it: the bytes (positions in, counts out) over the memory
+// rate and the needed pairs' lane arithmetic (d2 and its compare, 9
+// operations a pair) over the issue rate lie close together; at 256^3
+// the bytes are the larger (chip_smoke.py prints both).  What keeps it
+// from the bound: a row has about fifteen pairs but nine range reads and
+// nine searches of three or four dependent loads each; 28 registers a
+// thread, so a full SM of warps covers their latency.
 //
 // sweep3d_kernel, sweep6d_kernel.  Each row scans only its own 27 cells:
 // cell[row] numbers the row's occupied cell and win[cell][k] = (start,
@@ -55,9 +76,9 @@
 
 namespace {
 
-constexpr int R = 256;    // detect: rows = threads per block = tile width
-constexpr int NWIN = 9;   // windows per row block (detect) or cell (sweeps)
-constexpr int SWEEP_THREADS = 128;   // sweeps: one row per thread
+constexpr int NWIN = 9;   // windows per cell (sweeps)
+constexpr int DETECT_THREADS = 128;  // one row per thread
+constexpr int SWEEP_THREADS = 128;   // one row per thread
 
 __device__ __forceinline__ float dist2(float px, float py, float pz,
                                        float qx, float qy, float qz) {
@@ -70,37 +91,44 @@ __device__ __forceinline__ float dist2(float px, float py, float pz,
   return d2;
 }
 
-__global__ void __launch_bounds__(R)
-detect_kernel(const float* __restrict__ x, const float* __restrict__ y,
-              const float* __restrict__ z, int ns,
-              const int* __restrict__ win, float b2, int* __restrict__ out) {
-  __shared__ float sx[R], sy[R], sz[R];
-  const int row = blockIdx.x * R + threadIdx.x;
-  const bool valid = row < ns;
-  const float px = valid ? x[row] : 0.f;
-  const float py = valid ? y[row] : 0.f;
-  const float pz = valid ? z[row] : 0.f;
+__global__ void __launch_bounds__(DETECT_THREADS)
+detect_kernel(const float4* __restrict__ pts, const int* __restrict__ col,
+              const int* __restrict__ colstart, int ns, int nx, int ny,
+              float b2, int* __restrict__ out) {
+  const unsigned row = blockIdx.x * DETECT_THREADS + threadIdx.x;
+  if (row >= static_cast<unsigned>(ns)) return;
+  const float4 p = pts[row];
+  const int zlo = __float_as_int(p.w) - 1;   // z cells zlo..zhi, unclamped:
+  const int zhi = zlo + 2;                   // no slot has z cell -1 or nz
+  const int c = col[row];
+  const int cx = c / ny;
+  const int cy = c - cx * ny;
+  const int y0 = max(cy - 1, 0);
+  const int y1 = min(cy + 1, ny - 1);
   int cnt = 0;
-  const int* w = win + (size_t)blockIdx.x * (2 * NWIN);
-  for (int k = 0; k < NWIN; ++k) {
-    const int start = w[2 * k];
-    const int count = w[2 * k + 1];
-    for (int t0 = 0; t0 < count; t0 += R) {
-      const int m = min(R, count - t0);
-      __syncthreads();
-      if (threadIdx.x < m) {
-        const int j = start + t0 + threadIdx.x;
-        sx[threadIdx.x] = x[j];
-        sy[threadIdx.x] = y[j];
-        sz[threadIdx.x] = z[j];
+#pragma unroll 1
+  for (int x = max(cx - 1, 0); x <= min(cx + 1, nx - 1); ++x) {
+#pragma unroll 1
+    for (int cc = x * ny + y0; cc <= x * ny + y1; ++cc) {
+      int lo = colstart[cc];
+      const int end = colstart[cc + 1];
+      int hi = end;
+      while (lo < hi) {                      // first slot with z cell >= zlo
+        const int mid = lo + ((hi - lo) >> 1);
+        if (__float_as_int(pts[mid].w) < zlo) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
       }
-      __syncthreads();
-      for (int t = 0; t < m; ++t) {
-        cnt += dist2(px, py, pz, sx[t], sy[t], sz[t]) <= b2;
+      for (int j = lo; j < end; ++j) {
+        const float4 q = pts[j];
+        if (__float_as_int(q.w) > zhi) break;
+        cnt += dist2(p.x, p.y, p.z, q.x, q.y, q.z) <= b2;
       }
     }
   }
-  if (valid) out[row] = cnt;
+  out[row] = cnt;
 }
 
 __global__ void __launch_bounds__(SWEEP_THREADS)
@@ -158,26 +186,27 @@ sweep6d_kernel(const float4* __restrict__ pts, const float4* __restrict__ vels,
   out[row] = best;
 }
 
-inline int nblocks(int ns) { return (ns + R - 1) / R; }
-
-inline int sweep_blocks(int ns) {
-  return static_cast<int>((static_cast<long long>(ns) + SWEEP_THREADS - 1) /
-                          SWEEP_THREADS);
+inline int row_blocks(int ns, int threads) {
+  return static_cast<int>((static_cast<long long>(ns) + threads - 1) /
+                          threads);
 }
 
 }  // namespace
 
-extern "C" int vr_fof_detect(const float* pos, int ns, const int* win,
+extern "C" int vr_fof_detect(const float* pts, const int* col,
+                             const int* colstart, int ns, int nx, int ny,
                              float b2, int* out, void* stream) {
-  detect_kernel<<<nblocks(ns), R, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos, pos + ns, pos + 2 * (size_t)ns, ns, win, b2, out);
+  detect_kernel<<<row_blocks(ns, DETECT_THREADS), DETECT_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(pts), col, colstart, ns, nx, ny, b2,
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int vr_fof_sweep3d(const float* pts, const int* labels,
                               const int* cell, const int* win, int ns,
                               float b2, int* out, void* stream) {
-  sweep3d_kernel<<<sweep_blocks(ns), SWEEP_THREADS, 0,
+  sweep3d_kernel<<<row_blocks(ns, SWEEP_THREADS), SWEEP_THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(pts), labels, cell,
       reinterpret_cast<const int2*>(win), ns, b2, out);
@@ -188,7 +217,7 @@ extern "C" int vr_fof_sweep6d(const float* pts, const float* vels,
                               const int* labels, const int* cell,
                               const int* win, int ns, float inv_b2, int* out,
                               void* stream) {
-  sweep6d_kernel<<<sweep_blocks(ns), SWEEP_THREADS, 0,
+  sweep6d_kernel<<<row_blocks(ns, SWEEP_THREADS), SWEEP_THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(pts),
       reinterpret_cast<const float4*>(vels), labels, cell,

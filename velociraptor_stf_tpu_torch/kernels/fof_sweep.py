@@ -1,13 +1,17 @@
 """FOF neighbour scans: wrappers of ``csrc/fof_sweep.cu`` and their plain
 PyTorch versions.
 
-All three take cell-sorted slots (``ops/fof_sweep.py``).
+All three take cell-sorted slots (``ops/fof_sweep.py``) as packed
+(``pack``) (ns, 4) float32 rows: one 16-byte load per column.
 
 * ``detect``  <- ``_detect_kernel_3d`` (ops/pallas_fof.py:613): per slot,
-  the number of candidates with |dx|^2 <= b2, itself included.  It takes
-  positions as a (3, ns) float32 tensor and, per row block of ``R_BLOCK``
-  slots, the (nblocks, 9, 2) int32 block windows -- (start, count) slot
-  ranges, disjoint, jointly an exact superset of the block's neighbours.
+  the number of slots of its 27 cells with |dx|^2 <= b2, itself included.
+  Rows are (x, y, z, z cell bits); it takes the column index
+  (``ops/fof_sweep.py::column_index``): ``col`` (ns,) int32, the row's
+  z-column cx*ny + cy, and ``colstart`` (nx*ny + 1,) int32, each
+  z-column's first slot.  In each of the row's nine z-columns that lie on
+  the grid it scans the slots of z cells cz-1..cz+1, found by a search
+  inside the column's range (``column_windows``).
 * ``sweep3d`` <- ``_sweep_kernel_3d`` (:578): per slot, the minimum label
   over its own and the candidates' with |dx|^2 <= b2.
 * ``sweep6d`` <- ``_sweep_kernel_6d`` (:680): per slot, the minimum label
@@ -17,12 +21,9 @@ All three take cell-sorted slots (``ops/fof_sweep.py``).
 The sweeps take each row's own cell windows (``ops/fof_sweep.py::
 cell_windows``): ``cell`` (ns,) int32, the row's cell, and ``win``
 (ncell, 9, 2) int32, each cell's nine (start, count) ranges of the slots
-of its 27 cells.  Columns come packed (``pack``): (ns, 4) float32 rows
-(x, y, z, .), for the 6D sweep (x, y, z, group bits) and
-(vx, vy, vz, rivs).  A row whose cell has empty windows keeps its label.
-
-``detect_ref`` takes an optional ``blocks`` subset of row blocks; rows of
-other blocks get count 0.
+of its 27 cells.  Their rows are (x, y, z, .), for the 6D sweep
+(x, y, z, group bits) and (vx, vy, vz, rivs).  A row whose cell has empty
+windows keeps its label.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import torch
 
 from . import LAUNCHES
 from ._build import check, load_library
-from ._common import (BIG_I32, cell_pairs, check_cells, check_rows, f32,
-                      kernel_device, pair_d2, require, stream, window_tiles)
+from ._common import (BIG_I32, cell_pairs, check_cells, check_columns, f32,
+                      kernel_device, pair_d2, require, stream)
 
 NWIN = 9
 
@@ -60,14 +61,54 @@ def _d2(pts: torch.Tensor, rows: torch.Tensor,
     return pair_d2(pts.T, rows[:, None], cols[:, None]).reshape(-1)
 
 
-def detect_ref(pos: torch.Tensor, windows: torch.Tensor, b2: float,
-               blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    ns = pos.shape[1]
-    out = torch.zeros(ns, dtype=torch.int32, device=pos.device)
-    for rows, rvalid, cols, cvalid in window_tiles(windows, ns, blocks):
-        hit = (pair_d2(pos, rows, cols) <= b2) & cvalid[:, None, :]
-        cnt = hit.sum(-1, dtype=torch.int32)
-        out[rows[rvalid]] += cnt[rvalid]
+def column_windows(pts: torch.Tensor, col: torch.Tensor,
+                   colstart: torch.Tensor, ny: int, r0: int, r1: int
+                   ) -> torch.Tensor:
+    """(r1 - r0, 9, 2) int64 windows (start, count) that ``detect`` scans
+    for rows [r0, r1): for each (dx, dy) in {-1, 0, 1}^2 whose z-column
+    lies on the grid, the slots of that column -- within
+    [colstart[c], colstart[c + 1]) -- whose z cell is within one of the
+    row's; count 0 off the grid.  Slots sort on (z-column, z cell), so a
+    column's z cells cz-1..cz+1 are two binary searches of one key."""
+    cz = pts.view(torch.int32)[:, 3].long()
+    col = col.long()
+    cs = colstart.long()
+    nx = (cs.shape[0] - 1) // ny
+    span = int(cz.max()) + 3            # z cells -1..max + 1, shifted by 1
+    key = col * span + cz + 1
+    x = torch.div(col[r0:r1], ny, rounding_mode="floor")
+    y = col[r0:r1] - x * ny
+    z = cz[r0:r1]
+    out = torch.zeros(r1 - r0, NWIN, 2, dtype=torch.int64, device=pts.device)
+    for k, (dx, dy) in enumerate((dx, dy) for dx in (-1, 0, 1)
+                                 for dy in (-1, 0, 1)):
+        qx, qy = x + dx, y + dy
+        inside = (qx >= 0) & (qx < nx) & (qy >= 0) & (qy < ny)
+        c = torch.where(inside, qx * ny + qy, 0)
+        lo, hi = cs[c], cs[c + 1]
+        first = torch.searchsorted(key, c * span + z)          # z cell cz-1
+        end = torch.searchsorted(key, c * span + z + 2, right=True)
+        first = torch.minimum(torch.maximum(first, lo), hi)
+        end = torch.minimum(torch.maximum(end, first), hi)
+        out[:, k, 0] = first
+        out[:, k, 1] = torch.where(inside, end - first, 0)
+    return out
+
+
+def detect_ref(pts: torch.Tensor, col: torch.Tensor, colstart: torch.Tensor,
+               ny: int, b2: float, rows_per_batch: int = 1 << 21
+               ) -> torch.Tensor:
+    ns = pts.shape[0]
+    out = torch.zeros(ns, dtype=torch.int32, device=pts.device)
+    for r0 in range(0, ns, rows_per_batch):
+        r1 = min(r0 + rows_per_batch, ns)
+        win = column_windows(pts, col, colstart, ny, r0, r1)
+        own = torch.arange(r1 - r0, device=pts.device)
+        for rows, cols in cell_pairs(own, win):
+            rows = rows + r0
+            linked = rows[_d2(pts, rows, cols) <= b2]
+            out.index_add_(0, linked, torch.ones_like(linked,
+                                                      dtype=torch.int32))
     return out
 
 
@@ -97,18 +138,20 @@ def sweep6d_ref(pts: torch.Tensor, vels: torch.Tensor, labels: torch.Tensor,
     return out
 
 
-def detect(pos: torch.Tensor, windows: torch.Tensor,
-           b2: float) -> torch.Tensor:
-    """(ns,) int32 neighbour counts within sqrt(b2), self included."""
-    ns = check_rows(pos, NWIN, windows)
+def detect(pts: torch.Tensor, col: torch.Tensor, colstart: torch.Tensor,
+           ny: int, b2: float) -> torch.Tensor:
+    """(ns,) int32 neighbour counts within sqrt(b2), self included; ``pts``
+    packed (x, y, z, z cell bits) rows, (``col``, ``colstart``) the column
+    index of a grid with ``ny`` cells along y."""
+    ns, nx = check_columns(pts, col, colstart, ny)
     b2 = f32(b2)
-    if not kernel_device(pos):
-        return detect_ref(pos, windows, b2)
-    out = torch.empty(ns, dtype=torch.int32, device=pos.device)
+    if not kernel_device(pts):
+        return detect_ref(pts, col, colstart, ny, b2)
+    out = torch.empty(ns, dtype=torch.int32, device=pts.device)
     if ns:
         check(load_library().vr_fof_detect(
-            pos.data_ptr(), ns, windows.data_ptr(), b2, out.data_ptr(),
-            stream(pos)), "vr_fof_detect")
+            pts.data_ptr(), col.data_ptr(), colstart.data_ptr(), ns, nx, ny,
+            b2, out.data_ptr(), stream(pts)), "vr_fof_detect")
         LAUNCHES["fof_detect"] += 1
     return out
 

@@ -59,6 +59,27 @@ def build_grid(lo: np.ndarray, hi: np.ndarray, min_width: float,
                            float(width[2])))
 
 
+def limit_columns(grid: CellGrid, max_columns: int,
+                  max_depth: int = 2**31 - 2) -> CellGrid:
+    """``grid`` over the same extent with ``nx`` and ``ny`` halved until
+    the z-columns ``nx * ny`` number at most ``max_columns`` (at least 1),
+    and ``nz`` halved until it is at most ``max_depth``.  Cells only get
+    wider, so a stencil that held every candidate still does."""
+    nc = np.array(grid.ncells, np.int64)
+    extent = np.array(grid.width) * nc
+    while nc[0] * nc[1] > max(max_columns, 1):
+        nc[:2] = np.maximum(1, nc[:2] // 2)
+    while nc[2] > max_depth:
+        nc[2] //= 2
+    if tuple(nc) == tuple(grid.ncells):
+        return grid
+    width = extent / nc
+    return CellGrid(ncells=(int(nc[0]), int(nc[1]), int(nc[2])),
+                    origin=grid.origin,
+                    width=(float(width[0]), float(width[1]),
+                           float(width[2])))
+
+
 def cell_coords(pos: torch.Tensor, grid: CellGrid,
                 periodic: bool = False) -> torch.Tensor:
     """(N, 3) int64 cell coordinates of (N, 3) positions, computed in the

@@ -4,22 +4,26 @@ point and renumbering (port of velociraptor_stf_tpu/ops/pallas_fof.py).
 Particles -- plus periodic ghost images -- are sorted on their (cx, r)
 cell pair, r = cy*nz + cz.  Every neighbour of a slot then lies, for each
 (dx, dy) stencil offset, in one contiguous slot range: the cells
-(cx+dx, cy+dy, cz-1..cz+1) of one z-column.  Two window layouts serve the
-kernels of ``kernels/fof_sweep.py``, which evaluate the exact link
-criterion over them (a candidate superset plus an exact test gives exact
-FOF links):
+(cx+dx, cy+dy, cz-1..cz+1) of one z-column.  Two indexes serve the kernels
+of ``kernels/fof_sweep.py``, which evaluate the exact link criterion over
+them (a candidate superset plus an exact test gives exact FOF links):
 
-* ``block_windows``: per block of ``R_BLOCK`` consecutive slots, the nine
-  ranges from the block's first cell to its last, merged into a disjoint
-  union (the reference's layout).  ``detect`` takes them on the full
-  context.
+* ``column_index``: per slot its z-column ``cx*ny + cy`` and per z-column
+  its first slot (``nx*ny + 1`` starts, a few MB where a per-cell table of
+  the full context would take a GB).  ``detect`` takes it on the full
+  context: a row finds the cells cz-1..cz+1 of its nine z-columns by a
+  search inside each column's range.
 * ``cell_windows``: per occupied cell, the nine z-column ranges of its own
-  27 cells, disjoint by construction.  The sweeps take them: a row scans
-  exactly the slots of its 27 cells.
+  27 cells, disjoint by construction.  The sweeps take them on the
+  subsets their fixed points sweep: a row scans exactly the slots of its
+  27 cells, many times over.
 
-A context builds each layout at its first use and keeps it, so the full
-context builds only block windows, a subset that a fixed point sweeps
-only cell windows, each once.
+A context builds each index at its first use and keeps it, so the full
+context builds only the column index, a subset that a fixed point sweeps
+only cell windows, each once.  ``block_windows``, the reference's layout
+(per block of consecutive slots, the nine ranges from the block's first
+cell to its last), is kept as the port of ``_block_ranges`` and held to it
+bit for bit by the tests; the search does not call it.
 
 Periodic boxes get ghost images of the particles within ``reach`` of a face
 (three axis passes, so corners compose), which makes the grid
@@ -49,7 +53,10 @@ from ..kernels import R_BLOCK
 from ..kernels import fof_sweep as K
 from ..kernels._common import BIG_I32
 from ..utils import telemetry
-from .cells import CellGrid, build_grid, cell_coords
+from .cells import CellGrid, build_grid, cell_coords, limit_columns
+
+# z-columns (nx * ny) a context may have for each slot (``build_fof_ctx``)
+MAX_COLUMNS_PER_SLOT = 4
 
 
 @dataclass
@@ -72,9 +79,9 @@ class FofCtx:
         return int(self.src.shape[0])
 
     @cached_property
-    def detect_windows(self) -> torch.Tensor:
-        """(nblocks, 9, 2) int32 block windows (``block_windows``)."""
-        return block_windows(self.cx, self.cr, self.ncells)
+    def detect_index(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(col, colstart) of ``column_index``."""
+        return column_index(self.cx, self.cr, self.ncells)
 
     @cached_property
     def sweep_windows(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,9 +129,10 @@ def block_windows(cx: torch.Tensor, cr: torch.Tensor,
     detect pass, so they are merged into their disjoint union: sorted by
     start, each start clamped past the running covered end.
 
-    The kernels take ``chunk=1`` (exact slots).  With the reference's chunk
-    (CH = 1024) and rows (512) -- and its padded ``cx``/``cr`` -- this
-    reproduces the reference's windows in chunk units bit for bit.
+    No kernel of the port takes these windows and the search does not
+    build them.  With the reference's chunk (CH = 1024) and rows (512) --
+    and its padded ``cx``/``cr`` -- this reproduces the reference's windows
+    in chunk units bit for bit; ``chunk=1`` gives exact slots.
     Slots with ``cx == nx`` are padding and sort last."""
     device = cx.device
     ns = int(cx.shape[0])
@@ -167,6 +175,24 @@ def block_windows(cx: torch.Tensor, cr: torch.Tensor,
         out.append(torch.stack([st, ln], -1))
         run = torch.maximum(run, st + ln)
     return torch.stack(out, 1).to(torch.int32)       # (nblocks, 9, 2)
+
+
+def column_index(cx: torch.Tensor, cr: torch.Tensor,
+                 ncells: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(col, colstart): the (ns,) int32 z-column ``cx*ny + cy`` of each
+    cell-sorted slot and the (nx*ny + 1,) int32 first slot of each
+    z-column, so that column c holds the slots
+    [colstart[c], colstart[c + 1]), sorted on their z cell; an empty
+    column has an empty range.  One binary search per column over the
+    sorted slots."""
+    nx, ny, nz = ncells
+    if nx * ny >= BIG_I32:
+        raise ValueError(f"{nx * ny} z-columns exceed the int32 index")
+    col = cx * ny + torch.div(cr, nz, rounding_mode="floor")
+    colstart = torch.searchsorted(
+        col, torch.arange(nx * ny + 1, device=cx.device), out_int32=True)
+    return col.to(torch.int32), colstart
 
 
 def cell_windows(cx: torch.Tensor, cr: torch.Tensor,
@@ -237,7 +263,12 @@ def build_fof_ctx(pos: torch.Tensor, boxsize: Optional[float],
     else:
         lo = pos.min(0).values.cpu().numpy()
         hi = pos.max(0).values.cpu().numpy()
-    grid = build_grid(lo, hi, reach)
+    # z-columns beyond a few per slot only come from a very uneven open
+    # domain; wider cells there keep the column index far under the slots
+    # (and inside its int32 numbering)
+    grid = limit_columns(build_grid(lo, hi, reach),
+                         min(MAX_COLUMNS_PER_SLOT * int(pos.shape[0]),
+                             BIG_I32 - 1))
     _, ny, nz = grid.ncells
     c = cell_coords(pos, grid)
     cr = c[:, 1] * nz + c[:, 2]
@@ -327,7 +358,10 @@ class SweepFof:
         """(keep, nkeep): particles with a neighbour within the linking
         length (any image counts -- ghost rows fold into their source)."""
         c = self.ctx
-        cnt = K.detect(c.pos, c.detect_windows, float(linking_length) ** 2)
+        _, ny, nz = c.ncells
+        col, colstart = c.detect_index
+        pts = K.pack(c.pos.T, (c.cr % nz).int())
+        cnt = K.detect(pts, col, colstart, ny, float(linking_length) ** 2)
         keep = torch.zeros(c.n, dtype=torch.bool, device=cnt.device)
         keep[c.src[cnt >= 2]] = True
         return keep, int(keep.sum())
