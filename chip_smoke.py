@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--n N] [--cli-n N] [--profile PATH]
 
-``--profile`` adds a device-time table by operator and a table of
-synchronised spans of the field search (``fof_breakdown``).
+``--profile`` adds a device-time table by operator and tables of
+synchronised spans of the field search (``fof_breakdown``) and of the hydro
+path (``hydro_breakdown``: the association's cell sorts, window search,
+gathers, metric and reductions, the combined unbind, the per-type block).
 
 Builds the port's CUDA kernels from ``velociraptor_stf_tpu_torch/kernels/
 csrc`` and drives the port on the card, in phases:
@@ -993,29 +995,273 @@ def tree_case(torch, np, dev, opt):
     return times, med, p99
 
 
-def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
-    """A table of synchronised spans of one ``search_full_set`` (the "fof"
-    stage): every named step of ops/fof_sweep.py and models/halos.py is
-    wrapped, for this one run, by a clock that synchronises the card
-    before and after it.  Times are inclusive of the steps nested in a
-    span (indented below it); "other" is a span's time outside its named
-    steps.  The synchronisation itself lengthens the stage, so the
-    unwrapped stage's time is printed beside the table's total."""
-    from velociraptor_stf_tpu_torch.models import halos
-    from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
+HYDRO_OVERRIDES = """
+Baryon_searchflag=1
+Particle_search_type=1
+"""
+HYDRO_SAMPLE = 16384        # baryons held to the brute-force association
+HYDRO_CPU_N = 1 << 18       # size of the plain-version comparison
 
-    tpos, tvel, tmass = (torch.from_numpy(a).to(dev)
-                         for a in (pos, vel, mass))
-    plain = wall_ms(torch, lambda: halos.search_full_set(
-        opt, tpos, tvel, tmass, BOXSIZE))
+
+def hydro_inputs(np, n: int):
+    """Particle types and hydro fields of n particles: every 6th a baryon
+    (bench.py:83-89), the baryons split evenly into gas and stars, and the
+    internal energy, star formation rate (zero for half the gas),
+    metallicity and stellar age drawn from one seed."""
+    rng = np.random.default_rng(7)
+    baryon = np.arange(n) % 6 == 5
+    ptype = np.where(baryon, np.where(rng.random(n) < 0.5, 0, 4),
+                     1).astype(np.int8)
+    extras = {
+        "u": rng.uniform(10.0, 100.0, n),
+        "sfr": np.where(rng.random(n) < 0.5, rng.uniform(0.1, 2.0, n), 0.0),
+        "zmet": rng.uniform(0.0, 0.03, n),
+        "tage": rng.uniform(0.0, 10.0, n)}
+    return ptype, {k: v.astype(np.float32) for k, v in extras.items()}
+
+
+def hydro_options(n: int, C, cfg_path: Path):
+    """The slice's options with the baryon search on (the bench's
+    VR_BENCH_BARYONS=1 variant)."""
+    cfg_path.write_text(SLICE_CFG.read_text() + SLICE_OVERRIDES +
+                        HYDRO_OVERRIDES)
+    return slice_options(n, C, BOXSIZE, cfg_path)
+
+
+def check_association(torch, np, dev, opt, pos, vel, mass, ptype) -> str:
+    """The association alone against float64 numpy on the host: the DM
+    search and field unbind, ``search_baryons`` on the card, and for
+    HYDRO_SAMPLE baryons the brute-force answer -- among the tagged DM
+    within the linking length (scipy's periodic cKDTree), the lowest
+    dx^2/ellx^2 + dv^2/ellv^2 <= 1, equal distances to the lowest group
+    id.  A disagreement counts only where float64 separates the
+    candidates by more than 1e-5 (the card measures in float32)."""
+    from scipy.spatial import cKDTree
+
+    from velociraptor_stf_tpu_torch.models import baryons
+    from velociraptor_stf_tpu_torch.models.pipeline import search_and_unbind
+
+    dm = ptype == 1
+    sres = search_and_unbind(opt, pos[dm], vel[dm], mass[dm],
+                             boxsize=BOXSIZE, device=dev)
+    tvel_dm = torch.from_numpy(vel[dm]).to(dev)
+    vscale2 = baryons.velocity_scale2(tvel_dm, sres.pfof)
+    grp = baryons.search_baryons(
+        opt, torch.from_numpy(pos[dm]).to(dev), tvel_dm, sres.pfof,
+        torch.from_numpy(pos[~dm]).to(dev),
+        torch.from_numpy(vel[~dm]).to(dev), boxsize=BOXSIZE,
+        vscale2=vscale2).cpu().numpy()
+    pfof_dm = sres.pfof.cpu().numpy()
+    tag = pfof_dm > 0
+    pd, vd, gd = (pos[dm][tag].astype(np.float64),
+                  vel[dm][tag].astype(np.float64), pfof_dm[tag])
+    ellx = opt.ellphys * opt.ellxscale * opt.ellhalophysfac
+    ellv2 = max(vscale2, 1e-30) * opt.ellhalovelfac ** 2
+    # float32 positions can equal the box size: wrap them for the tree
+    tree = cKDTree(np.mod(pd, BOXSIZE), boxsize=BOXSIZE)
+    nb = int((~dm).sum())
+    sample = np.random.default_rng(3).choice(nb, min(HYDRO_SAMPLE, nb),
+                                             replace=False)
+    # half of the sample from the baryons that got a group
+    assigned = np.nonzero(grp > 0)[0]
+    sample[:len(sample) // 2] = np.random.default_rng(4).choice(
+        assigned, len(sample) // 2, replace=len(assigned) < len(sample))
+    pb = pos[~dm][sample].astype(np.float64)
+    vb = vel[~dm][sample].astype(np.float64)
+    near = tree.query_ball_point(np.mod(pb, BOXSIZE), ellx * (1 + 1e-6))
+    wrong = close = 0
+    for i, cand in enumerate(near):
+        got = int(grp[sample[i]])
+        if not cand:
+            wrong += got != 0
+            continue
+        cand = np.asarray(cand)
+        d = pb[i] - pd[cand]
+        d -= BOXSIZE * np.round(d / BOXSIZE)
+        dist = (d * d).sum(1) / (ellx * ellx) + \
+            ((vb[i] - vd[cand]) ** 2).sum(1) / ellv2
+        inside = dist <= 1.0
+        dmin = dist[inside].min() if inside.any() else np.inf
+        want = int(gd[cand][inside & (dist == dmin)].min()) \
+            if inside.any() else 0
+        if got == want:
+            continue
+        # float32 may order two candidates within 1e-5 the other way, or
+        # place one on the other side of the ellipse's edge
+        mine = dist[gd[cand] == got].min(initial=np.inf) if got else np.inf
+        edge = abs(min(dmin, mine) - 1.0) <= 1e-5 if got == 0 or want == 0 \
+            else False
+        if edge or (got and want and mine <= dmin * (1 + 1e-5)):
+            close += 1
+        else:
+            wrong += 1
+    if wrong:
+        raise AssertionError(f"association: {wrong} of {len(sample)} sampled "
+                             "baryons are not with their phase-nearest "
+                             "tagged DM particle")
+    return (f"{len(sample)} sampled baryons ({int((grp[sample] > 0).sum())} "
+            f"with a group) equal the float64 brute force ({close} within "
+            f"1e-5 of a tie or of the ellipse's edge); {int(tag.sum())} "
+            f"tagged DM, ellx {ellx:.5f}, ellv2 {ellv2:.6g}")
+
+
+def check_hydro_catalog(np, res, mass, vel, ptype, eratio: float) -> str:
+    """The hydro catalog against float64 numpy on the returned arrays:
+    per group n_gas + n_star + n_bh + its DM count == num; M_gas_sf +
+    M_gas_nsf == M_gas (rel 1e-5); every particle with a group id, the
+    baryons among them, is bound in its group's frame, the
+    mass-weighted mean velocity of the members: Eratio * T + W < 0 (to
+    1e-4 |W|: the ejection loop carries its sums in float32)."""
+    ng = res.ngroups
+    pr = res.props
+    pfof = res.pfof.astype(np.int64)
+    ndm = np.bincount(pfof[ptype == 1], minlength=ng + 1)
+    total = pr["n_gas"] + pr["n_star"] + pr["n_bh"] + ndm
+    if not np.array_equal(total[1:], pr["num"][1:]) or \
+            not np.array_equal(pr["num"][1:], np.bincount(
+                pfof, minlength=ng + 1)[1:]):
+        raise AssertionError("hydro catalog: per-type counts do not add up "
+                             "to the group sizes")
+    for t, code in (("gas", 0), ("star", 4)):
+        if not np.array_equal(pr[f"n_{t}"][1:], np.bincount(
+                pfof[ptype == code], minlength=ng + 1)[1:]):
+            raise AssertionError(f"hydro catalog: n_{t} differs from numpy")
+    split = pr["M_gas_sf"] + pr["M_gas_nsf"]
+    rel = np.abs(split - pr["M_gas"])[1:] / np.maximum(pr["M_gas"][1:], 1e-30)
+    if rel.max() > 1e-5:
+        raise AssertionError(f"hydro catalog: M_gas_sf + M_gas_nsf differs "
+                             f"from M_gas by rel {rel.max()}")
+    for k in ("M_gas", "M_star", "cm_gas", "sigV_star", "R_HalfMass_gas",
+              "Temp_mean_gas", "SFR_gas", "Zmet_star", "t_mean_star",
+              "q_gas", "Krot_star", "M_200crit_gas"):
+        if not np.isfinite(pr[k]).all():
+            raise AssertionError(f"hydro catalog: {k} not finite")
+    m64, v64 = mass.astype(np.float64), vel.astype(np.float64)
+    gm = np.bincount(pfof, weights=m64, minlength=ng + 1)
+    vcm = np.stack([np.bincount(pfof, weights=m64 * v64[:, k],
+                                minlength=ng + 1) for k in range(3)], 1)
+    vcm /= np.maximum(gm, 1e-30)[:, None]
+    T = 0.5 * m64 * ((v64 - vcm[pfof]) ** 2).sum(1)
+    W = res.W.astype(np.float64)
+    E = eratio * T + W
+    ing = pfof > 0
+    loose = ing & (E > 1e-4 * np.abs(W))
+    if loose.any():
+        raise AssertionError(
+            f"hydro catalog: {int(loose.sum())} grouped particles "
+            f"({int((loose & (ptype != 1)).sum())} baryons) are unbound "
+            "after the combined unbind")
+    nb_in = int((ing & (ptype != 1)).sum())
+    return (f"{ng} groups: type counts add up, M_gas_sf + M_gas_nsf = M_gas "
+            f"(rel {rel.max():.2g}), all {int(ing.sum())} grouped particles "
+            f"({nb_in} baryons) bound; gas fraction of the members "
+            f"{pr['n_gas'][1:].sum() / max(pr['num'][1:].sum(), 1):.4f}")
+
+
+def hydro_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
+    """Phase 8: the hydro path at full width.  Returns (the options, the
+    types, the hydro fields, the kernels' launch counts over the second
+    run)."""
+    from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
+    from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+    from velociraptor_stf_tpu_torch.utils import telemetry
+
+    tmp = Path(tempfile.mkdtemp(prefix="vr_hydro_"))
+    try:
+        opt = hydro_options(n, C, tmp / "hydro.cfg")
+        ptype, extras = hydro_inputs(np, len(pos))
+        nbar = int((ptype != 1).sum())
+        log(f"phase 8 input: {len(pos) - nbar} DM, {int((ptype == 0).sum())}"
+            f" gas, {int((ptype == 4).sum())} stars")
+        first = None
+        for rep in range(2):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            telemetry.reset()
+            t0 = time.perf_counter()
+            res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
+                                  ptype=ptype, extras=extras, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+            check_catalog(np, res, len(pos), opt.MinSize)
+            if first is None:
+                first = res
+            elif not same_catalog(np, res, first):
+                raise AssertionError("hydro path: two runs on the same "
+                                     "input differ")
+            share = float((res.pfof[ptype != 1] > 0).mean())
+            digest = hashlib.sha256(res.pfof.tobytes() + res.W.tobytes())
+            log(f"phase 8 run {rep} ({'warm-up' if rep == 0 else 'timed'}): "
+                f"ngroups {res.ngroups} timings {json.dumps(res.timings)} "
+                f"wall {wall:.3f} s; {share:.4f} of the baryons assigned; "
+                f"{telemetry.snapshot().get('baryon_pairs', 0)} pairs "
+                f"enumerated; ids and potentials sha256 "
+                f"{digest.hexdigest()[:16]}")
+        log(f"phase 8 launches {json.dumps(counts)} peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; two runs "
+            f"equal bit for bit ({len(res.props)} property arrays)")
+        missing = [k for k, v in counts.items() if v <= 0]
+        if missing or counts["potential"] < 2:
+            raise AssertionError(f"hydro path: kernels not launched "
+                                 f"{missing}, potential launched "
+                                 f"{counts['potential']} times (field and "
+                                 "combined unbind need 2)")
+        if {"fof", "unbind", "baryons", "properties", "so"} - \
+                set(res.timings):
+            raise AssertionError(f"hydro path: stages {sorted(res.timings)}")
+        log("phase 8 catalog: " + check_hydro_catalog(
+            np, res, mass, vel, ptype, opt.uinfo.Eratio))
+        del res, first
+        log("phase 8 association: " + check_association(
+            torch, np, dev, opt, pos, vel, mass, ptype))
+
+        # the same kind of input at a reduced size through the plain
+        # versions on the CPU: the expected group ids of the kernels' run
+        cn = HYDRO_CPU_N
+        cpos, cvel, cmass = make_cosmo_mock(cn, boxsize=BOXSIZE,
+                                            nhalos=max(64, cn // 16384),
+                                            seed=7)
+        cptype, cextras = hydro_inputs(np, len(cpos))
+        copt = hydro_options(cn, C, tmp / "hydro_small.cfg")
+        t0 = time.perf_counter()
+        want = find_structures(copt, cpos, cvel, cmass, boxsize=BOXSIZE,
+                               ptype=cptype, extras=cextras, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        got = find_structures(copt, cpos, cvel, cmass, boxsize=BOXSIZE,
+                              ptype=cptype, extras=cextras, device=dev)
+        if got.ngroups != want.ngroups or \
+                not np.array_equal(got.pfof, want.pfof):
+            raise AssertionError(
+                f"hydro path at n={cn}: the kernels give {got.ngroups} "
+                f"groups, the plain versions {want.ngroups}; "
+                f"{int((got.pfof != want.pfof).sum())} ids differ")
+        log(f"phase 8 plain versions at n={cn}: {want.ngroups} groups, "
+            f"{int((want.pfof[cptype != 1] > 0).sum())} baryons in groups, "
+            f"group ids equal to the kernels' run (plain run {cpu_s:.1f} s "
+            "on the host)")
+        return opt, ptype, extras, counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def span_table(torch, targets, run, title: str, plain_ms: float,
+               path: str) -> None:
+    """A table of synchronised spans of one ``run()``: each of ``targets``
+    -- (owner, attribute name, label) -- is wrapped, for this one run, by
+    a clock that synchronises the card before and after it.  Times are
+    inclusive of the steps nested in a span (indented below it); "other"
+    is a span's time outside its named steps.  The synchronisation itself
+    lengthens the run, so the unwrapped time ``plain_ms`` is printed
+    beside the table's total."""
     spans: dict = {}      # path of labels -> (calls, inclusive ms)
     first: dict = {}      # path -> rank of its first entry
     stack: list = []
     wrapped = []
 
-    def wrap(owner, name, label=None):
+    def wrap(owner, name, label):
         fn = getattr(owner, name)
-        label = label or name
 
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
@@ -1035,26 +1281,15 @@ def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
         wrapped.append((owner, name, fn))
         setattr(owner, name, timed)
 
-    for name in ("build_fof_ctx", "_ghost_pass", "build_grid",
-                 "limit_columns", "cell_coords", "_ctx_from_sorted",
-                 "column_index", "cell_windows", "_fixpoint", "_renumber"):
-        wrap(TF, name)
-    for name in ("subset", "linked_mask", "fof3d", "fof6d"):
-        wrap(TF.SweepFof, name, f"SweepFof.{name}")
-    for name in ("pack", "detect", "sweep3d", "sweep6d"):
-        wrap(TF.K, name, f"kernels.{name}")
-    wrap(torch, "argsort", "torch.argsort")
-    for name in ("velocity_scales", "finish_6d"):
-        wrap(halos, name)
+    for owner, name, label in targets:
+        wrap(owner, name, label)
     try:
-        total = wall_ms(torch, lambda: halos.search_full_set(
-            opt, tpos, tvel, tmass, BOXSIZE))
+        total = wall_ms(torch, run)
     finally:
         for owner, name, fn in reversed(wrapped):
             setattr(owner, name, fn)
-    lines = [f"fof breakdown: search_full_set {total:.3f} ms with every "
-             f"span synchronised, {plain:.3f} ms without; spans (calls, "
-             "inclusive ms):"]
+    lines = [f"{title}: {total:.3f} ms with every span synchronised, "
+             f"{plain_ms:.3f} ms without; spans (calls, inclusive ms):"]
     top = 0.0
     for path_ in sorted(spans, key=lambda k: [first[k[:d + 1]]
                                               for d in range(len(k))]):
@@ -1071,6 +1306,79 @@ def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
         log(ln)
     with open(path, "a") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
+    """The span table of one ``search_full_set`` (the "fof" stage): every
+    named step of ops/fof_sweep.py and models/halos.py."""
+    from velociraptor_stf_tpu_torch.models import halos
+    from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
+
+    tpos, tvel, tmass = (torch.from_numpy(a).to(dev)
+                         for a in (pos, vel, mass))
+
+    def run():
+        halos.search_full_set(opt, tpos, tvel, tmass, BOXSIZE)
+
+    plain = wall_ms(torch, run)
+    targets = [(TF, name, name) for name in (
+        "build_fof_ctx", "_ghost_pass", "build_grid", "limit_columns",
+        "cell_coords", "_ctx_from_sorted", "column_index", "cell_windows",
+        "_fixpoint", "_renumber")]
+    targets += [(TF.SweepFof, name, f"SweepFof.{name}")
+                for name in ("subset", "linked_mask", "fof3d", "fof6d")]
+    targets += [(TF.K, name, f"kernels.{name}")
+                for name in ("pack", "detect", "sweep3d", "sweep6d")]
+    targets += [(torch, "argsort", "torch.argsort"),
+                (halos, "velocity_scales", "velocity_scales"),
+                (halos, "finish_6d", "finish_6d")]
+    span_table(torch, targets, run, "fof breakdown: search_full_set", plain,
+               path)
+
+
+def hydro_breakdown(torch, opt, pos, vel, mass, ptype, extras, dev,
+                    path: str) -> None:
+    """The span table of one hydro ``find_structures``: the association
+    (cell sorts, window search, pair batches, the metric, the two
+    reductions), the combined unbind and the per-type block."""
+    from velociraptor_stf_tpu_torch.models import baryons, pipeline
+    from velociraptor_stf_tpu_torch.models import properties as props
+    from velociraptor_stf_tpu_torch.models import unbind
+    from velociraptor_stf_tpu_torch.ops import fof
+
+    args = [torch.from_numpy(a).to(dev) for a in (pos, vel, mass)]
+    tptype = torch.from_numpy(ptype).to(dev)
+    tex = {k: torch.from_numpy(v).to(dev) for k, v in extras.items()}
+
+    def run():
+        pipeline.find_structures(opt, *args, boxsize=BOXSIZE, ptype=tptype,
+                                 extras=tex, device=dev)
+
+    plain = wall_ms(torch, run)
+    targets = [
+        (pipeline.halos, "search_full_set", "search_full_set"),
+        (unbind, "check_unbound_groups", "check_unbound_groups"),
+        (unbind, "compute_potential", "compute_potential"),
+        (unbind, "eject", "eject"),
+        (baryons, "search_baryons", "search_baryons"),
+        (baryons, "velocity_scale2", "velocity_scale2"),
+        (fof, "nearest_assign_points", "nearest_assign_points"),
+        (fof, "stencil_batches", "stencil_batches"),
+        (fof, "bin_particles", "bin_particles"),
+        (fof, "stencil_windows", "stencil_windows"),
+        (fof, "_gather", "_gather"),
+        (fof, "pair_d2", "pair_d2"),
+        (baryons.PhaseMetric, "__call__", "PhaseMetric"),
+        (fof, "_nearest_reduce", "_nearest_reduce"),
+        (props, "property_bundle", "property_bundle"),
+        (props, "_properties", "_properties"),
+        (props, "_pertype", "_pertype"),
+        (props, "_apertures", "_apertures"),
+        (props, "_rvmax", "_rvmax"),
+        (props, "_energies", "_energies"),
+        (pipeline, "_so_stage", "_so_stage")]
+    span_table(torch, targets, run, "hydro breakdown: find_structures",
+               plain, path)
 
 
 def profile_run(torch, opt, pos, vel, mass, dev, path: str) -> None:
@@ -1128,7 +1436,8 @@ def main() -> int:
     ap.add_argument("--profile", metavar="PATH",
                     help="after the checks, profile one more find_structures "
                     "and search_and_unbind run and append the device-time "
-                    "tables by operator to PATH")
+                    "tables by operator and the span tables of the field "
+                    "search and of the hydro path to PATH")
     args = ap.parse_args()
 
     import torch
@@ -1263,6 +1572,14 @@ def main() -> int:
     log(f"phase 7 tree: one {TREE_N}-member group, tree {times['tree']:.3f} "
         f"s vs direct kernel {times['direct']:.3f} s; tree vs direct median "
         f"rel {med:.3g}, p99 {p99:.3g}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    hopt, ptype, extras, hydro_counts = hydro_case(torch, np, dev, C,
+                                                   kernels, pos, vel, mass,
+                                                   n)
+    for e in report:
+        e["launches_hydro"] = hydro_counts[e["name"]]
+    log(f"phase 8 hydro path: ok in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
         try:
@@ -1270,6 +1587,8 @@ def main() -> int:
                                  write_slice_config(tmp / "slice.cfg"))
             profile_run(torch, popt, pos, vel, mass, dev, args.profile)
             fof_breakdown(torch, popt, pos, vel, mass, dev, args.profile)
+            hydro_breakdown(torch, hopt, pos, vel, mass, ptype, extras, dev,
+                            args.profile)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     log(f"gpu: {card}")

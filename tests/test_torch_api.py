@@ -190,15 +190,20 @@ def test_invoke_velociraptor_wrapper(mock, tmp_path):
 
 
 def test_unported_modes_raise(mock):
-    """Substructure and mixed particle types raise find_structures'
-    NotImplementedError; invoke handles neither itself."""
+    """Substructure raises find_structures' NotImplementedError (invoke
+    handles no mode itself); mixed particle types, once refused too, now
+    give the per-type columns."""
     pos, vel, mass, _ = mock
     cosmo, sim = _state(TA)
     session = TA.VelociraptorSession(config_text=CFG_TEXT)
     ptype = np.where(np.arange(len(pos)) % 6 == 5, 0, 1).astype(np.int8)
-    with pytest.raises(NotImplementedError):
-        session.invoke(pos, vel, mass, ptype=torch.from_numpy(ptype),
-                       cosmo=cosmo, sim=sim, device="cpu")
+    out = session.invoke(pos, vel, mass, ptype=torch.from_numpy(ptype),
+                         cosmo=cosmo, sim=sim, device="cpu")
+    assert out["ngroups"] > 0
+    np.testing.assert_array_equal(
+        out["properties"]["n_gas"][1:],
+        np.bincount(out["group_id"][ptype == 0],
+                    minlength=out["ngroups"] + 1)[1:])
     session.opt.iSubSearch = 1
     with pytest.raises(NotImplementedError):
         session.invoke(pos, vel, mass, cosmo=cosmo, sim=sim, device="cpu")

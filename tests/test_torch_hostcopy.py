@@ -135,6 +135,11 @@ def test_convert_options_round_trips(name):
     assert type(got.pinfo) is TC.PropInfo
     assert dataclasses.asdict(got) == dataclasses.asdict(jopt)
     assert got.nsnapread == 2
+    # what the hydro path reads
+    for key in ("iBaryonSearch", "partsearchtype", "ellhalophysfac",
+                "ellhalovelfac", "HaloVelDispScale", "zoomlowmassdm",
+                "lengthtokpc", "ParticleTypeForRefenceFrame"):
+        assert getattr(got, key) == getattr(jopt, key), key
     # a deep copy: changing one side leaves the other
     if got.aperture_values_kpc is not None:
         got.aperture_values_kpc.append(9.0)

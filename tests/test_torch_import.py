@@ -68,15 +68,66 @@ print("OK", res.ngroups)
     assert proc.stdout.startswith("OK")
 
 
+def test_port_runs_hydro_path_without_jax():
+    """find_structures on several particle types with a baryon search:
+    the pair pipeline, the association, the combined unbind and the
+    per-type properties, with jax never imported."""
+    code = """
+import sys
+import numpy as np
+from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
+from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+from velociraptor_stf_tpu_torch.utils import config as C
+
+n, box = 4096, 20.0
+pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=6, seed=3)
+ptype = np.where(np.arange(len(pos)) % 6 == 5, 0, 1).astype(np.int8)
+ptype[5::12] = 4
+opt = C.Options()
+opt.ellphys = 0.2
+opt.ellxscale = box / n ** (1 / 3)
+opt.fofbgtype = C.FOF6D
+opt.MinSize = 20
+opt.uinfo.unbindflag = 1
+opt.iBoundHalos = 1
+opt.G = 43.0211349
+opt.iSubSearch = 0
+opt.iBaryonSearch = 1
+opt.partsearchtype = C.PSTALL
+C.config_check(opt)
+res = find_structures(opt, pos, vel, mass, boxsize=box, ptype=ptype,
+                      extras={"u": np.ones(len(pos), np.float32)},
+                      device="cpu")
+assert res.ngroups > 0, res.ngroups
+assert (res.pfof[ptype != 1] > 0).any()
+assert res.props["n_gas"][1:].sum() > 0 and "Temp_mean_gas" in res.props
+assert {"fof", "unbind", "baryons", "properties"} <= set(res.timings)
+""" + NO_JAX_PACKAGE + """
+print("OK", res.ngroups)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_import_scan_covers_hydro_modules():
+    """The ast scan below globs the package: the pair pipeline and the
+    baryon association are among the files it reads."""
+    files = {f.relative_to(REPO).as_posix()
+             for f in (REPO / "velociraptor_stf_tpu_torch").rglob("*.py")}
+    assert {"velociraptor_stf_tpu_torch/ops/fof.py",
+            "velociraptor_stf_tpu_torch/models/baryons.py"} <= files
+
+
 def test_kernels_import_without_nvcc():
     code = """
 import sys
 import velociraptor_stf_tpu_torch
 from velociraptor_stf_tpu_torch import convert, kernels
 from velociraptor_stf_tpu_torch.kernels import _build, fof_sweep, potential
-from velociraptor_stf_tpu_torch.models import (halos, pipeline, properties,
-                                               unbind)
-from velociraptor_stf_tpu_torch.ops import cells, gravity, segments, so
+from velociraptor_stf_tpu_torch.models import (baryons, halos, pipeline,
+                                               properties, unbind)
+from velociraptor_stf_tpu_torch.ops import cells, fof, gravity, segments, so
 from velociraptor_stf_tpu_torch import api, cli, particles
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",

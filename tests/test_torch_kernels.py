@@ -660,3 +660,63 @@ def test_cuda_wrappers_count_launches_and_reject_cpu_windows(cuda):
     with pytest.raises(ValueError):
         KF.sweep3d(pts, lab, cell.to(cuda), win, ll * ll)
     assert kernels.LAUNCHES["fof_sweep3d"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_hydro_path_matches_cpu(cuda):
+    """The pair pipeline and the hydro find_structures on the card
+    against the same calls on the CPU: edge sets, group ids and baryon
+    assignments exactly equal; every kernel launched, the potential for
+    the field and for the combined unbind."""
+    from velociraptor_stf_tpu_torch import kernels
+    from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
+    from velociraptor_stf_tpu_torch.models.baryons import search_baryons
+    from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+    from velociraptor_stf_tpu_torch.ops import fof
+    from velociraptor_stf_tpu_torch.utils import config as C
+
+    n, box = 1 << 16, 40.0
+    pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=24, seed=5)
+    ptype = np.where(np.arange(len(pos)) % 6 == 5, 0, 1).astype(np.int8)
+    ptype[11::12] = 4
+    opt = C.Options()
+    opt.ellphys = 0.2
+    opt.ellxscale = box / n ** (1 / 3)
+    opt.fofbgtype = C.FOF6D
+    opt.MinSize = 20
+    opt.uinfo.unbindflag = 1
+    opt.iBoundHalos = 1
+    opt.G = 43.0211349
+    opt.iSubSearch = 0
+    opt.iBaryonSearch = 1
+    opt.partsearchtype = C.PSTALL
+    C.config_check(opt)
+    extras = {"u": np.ones(len(pos), np.float32)}
+    want = find_structures(opt, pos, vel, mass, boxsize=box, ptype=ptype,
+                           extras=extras, device="cpu")
+    kernels.reset_launches()
+    got = find_structures(opt, pos, vel, mass, boxsize=box, ptype=ptype,
+                          extras=extras, device=cuda)
+    assert got.ngroups == want.ngroups > 0
+    np.testing.assert_array_equal(got.pfof, want.pfof)
+    assert (got.pfof[ptype != 1] > 0).any()
+    np.testing.assert_array_equal(got.props["n_gas"], want.props["n_gas"])
+    assert kernels.LAUNCHES["potential"] == 2
+    assert all(v > 0 for v in kernels.LAUNCHES.values())
+
+    b = opt.ellphys * opt.ellxscale
+    tpos = torch.from_numpy(pos)
+    e_cpu = fof.build_edges(tpos, b, boxsize=box)
+    e_gpu = fof.build_edges(tpos.to(cuda), b, boxsize=box)
+    assert torch.equal(e_gpu.erow.cpu(), e_cpu.erow)
+    assert torch.equal(e_gpu.ecol.cpu(), e_cpu.ecol)
+    p_cpu, ng_cpu = fof.fof3d(tpos, b, boxsize=box, min_size=20)
+    p_gpu, ng_gpu = fof.fof3d(tpos.to(cuda), b, boxsize=box, min_size=20)
+    assert ng_cpu == ng_gpu > 0 and torch.equal(p_gpu.cpu(), p_cpu)
+    dm = torch.from_numpy(ptype == 1)
+    args = (tpos[dm], torch.from_numpy(vel)[dm], p_cpu[dm].long(), tpos[~dm],
+            torch.from_numpy(vel)[~dm])
+    g_cpu = search_baryons(opt, *args, boxsize=box, vscale2=4.0e4)
+    g_gpu = search_baryons(opt, *(a.to(cuda) for a in args), boxsize=box,
+                           vscale2=4.0e4)
+    assert torch.equal(g_gpu.cpu(), g_cpu) and bool((g_cpu > 0).any())

@@ -111,7 +111,7 @@ def assert_props_match(got, want, ng):
             np.testing.assert_array_equal(g, w, err_msg=k)
             continue
         g, w = g.astype(np.float64), w.astype(np.float64)
-        if k in EIGVEC_KEYS:
+        if k in EIGVEC_KEYS or k.startswith("eigvec_"):
             # each eigenvector (column) up to its sign
             sign = np.sign(np.sum(g * w, axis=-2, keepdims=True))
             g = g * np.where(sign == 0, 1.0, sign)
@@ -220,12 +220,23 @@ def test_stage_functions_match_reference_in_any_order(searched):
 
 
 def test_pertype_not_ported(searched):
+    """Once the per-type blocks were refused; now ``pertype`` without
+    particle types adds no column (as in the reference), and with them the
+    per-type blocks (held to the reference in tests/test_torch_pertype.py)."""
     pos, vel, mass, pfof, ng, W, boxsize = searched
-    with pytest.raises(NotImplementedError):
-        TP.property_bundle(convert.options(slice_options(boxsize, len(pos))),
-                           torch.from_numpy(pos), torch.from_numpy(vel),
-                           torch.from_numpy(mass), convert.group_ids(pfof),
-                           ng, pertype=True)
+    args = (convert.options(slice_options(boxsize, len(pos))),
+            torch.from_numpy(pos), torch.from_numpy(vel),
+            torch.from_numpy(mass), convert.group_ids(pfof), ng)
+    plain = TP.property_bundle(*args)
+    assert set(TP.property_bundle(*args, pertype=True)) == set(plain)
+    ptype = torch.ones(len(pos), dtype=torch.int64)
+    ptype[::5] = 0
+    typed = TP.property_bundle(*args, pertype=True, ptype=ptype)
+    assert set(plain) < set(typed)
+    np.testing.assert_array_equal(
+        typed["n_gas"][1:].numpy(),
+        np.bincount(pfof[::5], minlength=ng + 1)[1:])
+    assert int(typed["n_star"].sum()) == 0
 
 
 def test_so_crossing_matches_oracle():

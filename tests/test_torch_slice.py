@@ -8,6 +8,7 @@ Group ids and counts must be exactly equal; potentials within rel 1e-4.
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -142,12 +143,11 @@ def test_slice_keepfof_envelopes():
     assert res.W is None and "unbind" not in res.timings
 
 
-@pytest.mark.parametrize("what", ["iSubSearch", "iSingleHalo", "baryons",
-                                  "mesh", "pertype"])
+@pytest.mark.parametrize("what", ["iSubSearch", "iSingleHalo", "mesh",
+                                  "baryon-mesh"])
 def test_unported_modes_raise(what):
-    """Both entry points refuse the modes not ported yet; per-type
-    properties (several particle types without a baryon search) concern
-    only find_structures."""
+    """Both entry points refuse the modes not ported yet, and the baryon
+    association a device mesh."""
     pos = np.zeros((8, 3), np.float32)
     opt = _bench_opts(10.0, 8)
     kw = {}
@@ -155,17 +155,19 @@ def test_unported_modes_raise(what):
         opt.iSubSearch = 1
     elif what == "iSingleHalo":
         opt.iSingleHalo = 1
-    elif what == "baryons":
-        opt.iBaryonSearch = 1
-        kw["ptype"] = np.array([C.DARKTYPE] * 4 + [0] * 4)
-    elif what == "pertype":
-        kw["ptype"] = np.array([C.DARKTYPE] * 4 + [4] * 4)
     else:
         kw["mesh"] = object()
-    args = (convert.options(opt), pos, pos, np.ones(8, np.float32))
-    if what != "pertype":
+    if what == "baryon-mesh":
+        from velociraptor_stf_tpu_torch.models.baryons import search_baryons
+
+        t = torch.zeros(8, 3)
         with pytest.raises(NotImplementedError):
-            search_and_unbind(*args, boxsize=10.0, device="cpu", **kw)
+            search_baryons(convert.options(opt), t, t,
+                           torch.ones(8, dtype=torch.int64), t, t, **kw)
+        return
+    args = (convert.options(opt), pos, pos, np.ones(8, np.float32))
+    with pytest.raises(NotImplementedError):
+        search_and_unbind(*args, boxsize=10.0, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         find_structures(*args, boxsize=10.0, device="cpu", **kw)
 

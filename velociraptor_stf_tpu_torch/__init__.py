@@ -5,8 +5,11 @@ covers the main path that ``bench.py`` times -- 3DFOF -> 6DFOF -> field
 unbinding (``models.pipeline.search_and_unbind``) -- with every Pallas TPU
 kernel of that path rewritten as a hand-written CUDA kernel for Hopper
 (``kernels/csrc``), and the halo catalog on top of it: properties and
-spherical overdensities (``models.pipeline.find_structures``) and the
-command line (``python -m velociraptor_stf_tpu_torch.cli``).  It keeps its
+spherical overdensities (``models.pipeline.find_structures``), the
+command line (``python -m velociraptor_stf_tpu_torch.cli``) and the
+library API (``api``).  Hydro snapshots take the pair pipeline
+(``ops.fof``), the baryon association with its combined unbind
+(``models.baryons``) and the per-type properties.  It keeps its
 own copies of the host modules it needs (options and config parser,
 cosmology, counters and timer in ``utils``; snapshot readers, catalog
 writers and mocks in ``io``; float64 oracles in ``validation``) and imports

@@ -6,9 +6,11 @@ and, with ``iBoundHalos >= 1``, the field-halo unbind, timed as "fof" and
 "unbind" as the reference does.  ``find_structures`` runs them, then the
 iKeepFOF hierarchy, the property stage on the tagged particles
 ("properties") and the spherical overdensities of ``Inclusive_halo_masses``
-("so"), and returns a catalog in numpy as the reference's does.
-Substructure, baryons, per-type properties, single-halo mode and a device
-mesh are not ported yet and raise ``NotImplementedError``.
+("so"), and returns a catalog in numpy as the reference's does.  Given
+particle types, both run the baryon association and the combined unbind
+after the dark-matter search ("baryons"), and ``find_structures`` adds the
+per-type properties.  Substructure, single-halo mode and a device mesh are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from . import baryons as baryons_mod
 from . import halos, properties as props_mod, unbind
 from ..ops import so as so_ops
 from ..utils import config as C
@@ -59,13 +62,38 @@ def _as_f32(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
 
 
+def _as_ptype(ptype, device: torch.device) -> Optional[torch.Tensor]:
+    """Particle types as an int64 tensor on ``device`` (None stays None)."""
+    if ptype is None:
+        return None
+    if not isinstance(ptype, torch.Tensor):
+        ptype = torch.from_numpy(np.ascontiguousarray(ptype))
+    return ptype.to(device=device, dtype=torch.int64)
+
+
+def _scatter(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) zeros with ``values`` at rows ``idx``."""
+    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    out[idx] = values
+    return out
+
+
 def search_and_unbind(opt: C.Options, pos, vel, mass,
                       boxsize: Optional[float] = None,
                       device: Union[str, torch.device] = "cuda",
                       ptype=None, mesh=None) -> SearchResult:
-    """Field search [+ field unbind] of (N, 3) positions and velocities and
-    (N,) masses (numpy or tensors; computed in float32 on ``device``).
-    ``boxsize > 0`` makes the box periodic."""
+    """Field search [+ field unbind] [+ baryons] of (N, 3) positions and
+    velocities and (N,) masses (numpy or tensors; computed in float32 on
+    ``device``).  ``boxsize > 0`` makes the box periodic.
+
+    With ``ptype`` holding dark matter and other types and
+    ``Baryon_searchflag > 0`` the search and the field unbind run on the
+    dark matter alone; gas, star and black-hole particles then join the
+    group of their phase-space-nearest tagged DM particle and the groups
+    are unbound once more with them (reference SearchBaryons,
+    search.cxx:3053, main.cxx:397), timed as "baryons".  ``pfof3d`` is
+    then in the order of the dark matter subset, as in the reference."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
     if opt.iSingleHalo:
@@ -73,18 +101,24 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     if opt.iSubSearch:
         raise NotImplementedError("substructure search (iSubSearch) is not "
                                   "ported yet")
-    if ptype is not None and opt.iBaryonSearch > 0:
-        types = np.unique(np.asarray(ptype))
-        if C.DARKTYPE in types and len(types) > 1:
-            raise NotImplementedError("baryon mode is not ported yet")
     device = torch.device(device)
     clock = _clock(device)
     timings: Dict[str, float] = {}
     units.calc_cosmo_params(opt, opt.a)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
+    n = pos.shape[0]
+    dmi = bi = None
+    if ptype is not None and opt.iBaryonSearch > 0:
+        isdm = _as_ptype(ptype, device) == C.DARKTYPE
+        ndm = int(isdm.sum())
+        if 0 < ndm < n:
+            dmi = torch.nonzero(isdm).squeeze(1)
+            bi = torch.nonzero(~isdm).squeeze(1)
+    spos, svel, smass = (pos, vel, mass) if dmi is None else \
+        (pos[dmi], vel[dmi], mass[dmi])
 
     t0 = clock()
-    fres = halos.search_full_set(opt, pos, vel, mass, boxsize=boxsize)
+    fres = halos.search_full_set(opt, spos, svel, smass, boxsize=boxsize)
     pfof, ng = fres.pfof, fres.ngroups
     timings["fof"] = clock() - t0
     pfof3d = fres.pfof3d
@@ -93,6 +127,11 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     # re-attached as ids 1..keepfof afterwards
     keepfof, parent3d = fres.num3dfof, fres.parent3d
     del fres
+    if keepfof > 0 and dmi is not None:
+        # the reference's envelope re-attachment mixes DM-subset and
+        # full-set arrays and fails on this combination
+        raise NotImplementedError("3DFOF envelopes (iKeepFOF) with a baryon "
+                                  "search are not supported")
     env_pfof = None
     if keepfof > 0:
         env_pfof = torch.where(pfof <= keepfof, pfof, 0)
@@ -105,12 +144,40 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     if opt.uinfo.unbindflag and ng > 0 and opt.iBoundHalos >= 1:
         t0 = clock()
         minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
-        ures = unbind.check_unbound_groups(pos, vel, mass, pfof, ng,
+        ures = unbind.check_unbound_groups(spos, svel, smass, pfof, ng,
                                            opt.uinfo, opt.G, boxsize=boxsize,
                                            min_size=minsize)
         pfof, ng, W = ures.pfof, ures.ngroups, ures.W
         gid_map = ures.gid_map
         timings["unbind"] = clock() - t0
+
+    if dmi is not None:
+        t0 = clock()
+        grp_b = baryons_mod.search_baryons(opt, spos, svel, pfof, pos[bi],
+                                           vel[bi], boxsize=boxsize)
+        # DM and baryon labels spliced into full-set order
+        pfof = _scatter(pfof, dmi, n)
+        pfof[bi] = grp_b.long()
+        if W is not None:
+            # the field unbind's potentials live on the DM subset; the
+            # combined pass overwrites them unless every group dissolved
+            W = _scatter(W, dmi, n)
+        # so do the pre-unbind labels for the inclusive masses: baryons
+        # are untagged there
+        if pfof_fof is not None:
+            pfof_fof = _scatter(pfof_fof, dmi, n)
+        # the groups are unbound again with their baryons (reference
+        # search.cxx:3500+), down to MinSize, not HaloMinSize
+        if opt.uinfo.unbindflag and ng > 0:
+            ures = unbind.check_unbound_groups(
+                pos, vel, mass, pfof, ng, opt.uinfo, opt.G, boxsize=boxsize,
+                min_size=opt.MinSize)
+            pfof, ng, W = ures.pfof, ures.ngroups, ures.W
+            # old FOF id -> final id through both renumberings
+            gm = ures.gid_map
+            gid_map = gm if gid_map is None else \
+                gm[torch.clamp(gid_map, 0, gm.shape[0] - 1)]
+        timings["baryons"] = clock() - t0
 
     if keepfof > 0:
         pfof = torch.where(pfof > 0, pfof + keepfof, env_pfof)
@@ -203,16 +270,19 @@ def find_structures(opt: C.Options, pos, vel, mass,
                     extras: Optional[Dict] = None, mesh=None,
                     device: Union[str, torch.device] = "cuda"
                     ) -> CatalogResult:
-    """Field search [+ field unbind] + properties [+ SO] of (N, 3)
-    positions and velocities and (N,) masses, computed in float32 on
-    ``device``: the reference's ``main()`` path for the modes ported so far
-    (reference main.cxx:20-544).  Returns numpy arrays."""
-    if ptype is not None and len(np.unique(np.asarray(ptype))) > 1:
-        raise NotImplementedError("per-type (baryon) properties are not "
-                                  "ported yet")
+    """Field search [+ field unbind] [+ baryons] + properties [+ SO] of
+    (N, 3) positions and velocities and (N,) masses, computed in float32
+    on ``device``: the reference's ``main()`` path for the modes ported so
+    far (reference main.cxx:20-544).  ``ptype`` (N,) particle types and
+    ``extras`` (hydro fields of ``properties.HYDRO_FIELDS``, each (N,)) feed the
+    baryon search, the reference-frame choice and the per-type
+    properties, which are computed when several types are present.
+    Returns numpy arrays; with no group found, ``ngroups`` 0, ``pfof`` all
+    zero and one-row property arrays."""
     device = torch.device(device)
     clock = _clock(device)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
+    ptype = _as_ptype(ptype, device)
     sres = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize,
                              device=device, ptype=ptype, mesh=mesh)
     timings = dict(sres.timings)
@@ -225,15 +295,23 @@ def find_structures(opt: C.Options, pos, vel, mass,
         hostid, parent, level, stype = _keepfof_hierarchy(
             keepfof, ng - keepfof, sres.parent3d.cpu().numpy(), gid_map)
 
-    # the property stage runs on the tagged particles, group by group
+    # the property stage runs on the tagged particles, group by group;
+    # with none tagged, on one untagged particle: row 0 alone
     t0 = clock()
     sub = _tagged_by_group(pfof)
+    if sub.shape[0] == 0:
+        sub = torch.zeros(1, dtype=torch.int64, device=device)
+    pertype = ptype is not None and int(torch.unique(ptype).shape[0]) > 1
+    hydro = {k: _as_f32(v, device)[sub] for k, v in (extras or {}).items()
+             if k in props_mod.HYDRO_FIELDS and v is not None}
     pr = props_mod.property_bundle(
         opt, pos[sub], vel[sub], mass[sub], pfof[sub], ng,
-        W=None if W is None else W[sub], boxsize=boxsize)
+        W=None if W is None else W[sub],
+        ptype=None if ptype is None else ptype[sub], boxsize=boxsize,
+        pertype=pertype, **hydro)
     timings["properties"] = clock() - t0
     props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
-    del pr, sub
+    del pr, sub, hydro
 
     so_offsets = so_indices = None
     if opt.iInclusiveHalo > 0 and ng > 0:

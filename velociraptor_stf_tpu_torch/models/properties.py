@@ -1,8 +1,8 @@
 """Bulk halo properties by segment reductions (port of
 velociraptor_stf_tpu/models/properties.py: ``compute_properties``
 (``_props_geom`` + ``_props_kin``), ``compute_aperture_properties``,
-``compute_rvmax_properties``, ``compute_energies`` and
-``property_bundle``).
+``compute_rvmax_properties``, ``compute_pertype_properties``,
+``compute_energies`` and ``property_bundle``).
 
 Every public function sorts its particles by group once (stably, so each
 group keeps its members' order) and works on the group-sorted arrays:
@@ -11,7 +11,7 @@ reference's scatter-adds do on the CPU, and give the same result on every
 run on a card.  Per-group arrays have num_groups + 1 rows, row 0 being the
 untagged particles.  The reference's ``jax.lax.while_loop`` (shrinking
 sphere) is a host loop with one ``.any()`` per round; its jitted padding
-classes are gone.  Per-particle-type properties (baryons) are not ported.
+classes are gone.
 """
 
 from __future__ import annotations
@@ -414,6 +414,182 @@ def _rvmax(pos, vel, mass, pfof, num_groups: int, *, refpos, refvel,
     }
 
 
+LOWRESTYPES = (2, 3)  # zoom low-res DM ("interloper", reference HIGHRES)
+PERTYPE_TYPES = (("gas", C.GASTYPE), ("star", C.STARTYPE), ("bh", C.BHTYPE))
+# per-particle hydro fields the per-type blocks read where a snapshot has them
+HYDRO_FIELDS = ("u", "sfr", "zmet", "tage", "bhmdot")
+
+
+def compute_pertype_properties(pos, vel, mass, ptype, pfof, num_groups: int,
+                               *, refpos, refvel, **kw) -> Props:
+    """Per-particle-type bulk properties of groups 1..num_groups (gas,
+    star and black-hole sub-properties; reference GetProperties' GASON /
+    STARON / BHON blocks, substructureproperties.cxx:266+, fields
+    allvars.h:1322-1528).  Keywords as ``_pertype``."""
+    ex = [kw.pop(k, None) for k in HYDRO_FIELDS]
+    pfof, pos, vel, mass, ptype, *ex = group_sorted(pfof, pos, vel, mass,
+                                                    ptype, *ex)
+    return _pertype(pos, vel, mass, ptype, pfof, num_groups, refpos=refpos,
+                    refvel=refvel, **dict(zip(HYDRO_FIELDS, ex)), **kw)
+
+
+def _pertype(pos, vel, mass, ptype, pfof, num_groups: int, *, refpos,
+             refvel, types=PERTYPE_TYPES, u=None, sfr=None, zmet=None,
+             tage=None, bhmdot=None, rvmax=None, r200c=None, r200m=None,
+             r500c=None, rBN98=None, r30: float = 0.0, r50: float = 0.0,
+             zoomlowmassdm: float = 0.0, full: bool = True) -> Props:
+    """All quantities are segment reductions keyed by (group, type) over
+    group-sorted particles; the half-mass radii share one (group, radius)
+    sort.  ``full``: also the velocity dispersion tensor, shape (q, s,
+    eigenvectors), Krot, the mass within twice the half-mass radius, the
+    fixed-aperture masses (``r30`` / ``r50`` = 30 / 50 kpc in internal
+    units) and the SO-scoped masses and angular momenta (M_200crit_gas,
+    L_200mean_star, ...) for the SO radii given.  The star-forming /
+    non-star-forming gas split (SFR > 0) and the zoom low-resolution
+    "interloper" block come with the inputs they need."""
+    n = pos.shape[0]
+    ng1 = num_groups + 1
+    dx = pos - refpos[pfof]
+    dv = vel - refvel[pfof]
+    r2 = seg.sq3(dx)
+    perm = seg.lexsort2(r2, pfof)
+    g_s = pfof[perm]
+    offsets = seg.group_offsets(g_s, num_groups)
+    r_s = torch.sqrt(torch.clamp_min(r2[perm], 1e-30))
+    m_s = mass[perm]
+    in_s = g_s > 0
+    tagged = pfof > 0
+    Lp = torch.linalg.cross(dx, dv)
+    scopes = [(name, rad) for name, rad in (
+        ("200crit", r200c), ("200mean", r200m), ("500c", r500c),
+        ("BN98", rBN98)) if rad is not None]
+    out: Props = {}
+
+    def msum_of(sel, values=None):
+        return _ssum(torch.where(sel, mass if values is None else values,
+                                 0.0), pfof, ng1)
+
+    def block(tname, sel, with_temp_sfr=False, with_age=False):
+        w = torch.where(sel, mass, 0.0)
+        msum = _ssum(w, pfof, ng1)
+        msafe = torch.clamp_min(msum, 1e-30)
+        out[f"n_{tname}"] = seg.segment_count(sel, pfof, ng1)
+        out[f"M_{tname}"] = msum
+        cmv = _ssum(vel * w[:, None], pfof, ng1) / msafe[:, None]
+        out[f"cm_{tname}"] = _ssum(pos * w[:, None], pfof, ng1) / \
+            msafe[:, None]
+        out[f"cmvel_{tname}"] = cmv
+        dvt = vel - cmv[pfof]
+        dvt2 = seg.sq3(dvt)
+        out[f"sigV_{tname}"] = torch.sqrt(
+            msum_of(sel, dvt2 * mass) / msafe / 3.0)
+        L = _ssum(Lp * w[:, None], pfof, ng1)
+        out[f"L_{tname}"] = L
+        # half-mass radius of the type (radius-sorted masked cumsum)
+        Mcum_t = seg.segment_cumsum(torch.where(sel[perm], m_s, 0.0), g_s,
+                                    offsets)
+        khalf = _first_crossing((Mcum_t > 0.5 * msum[g_s]) & in_s, g_s, ng1)
+        rhalf = torch.where(khalf < n, r_s[torch.clamp_max(khalf, n - 1)],
+                            0.0)
+        out[f"R_HalfMass_{tname}"] = rhalf
+        if full:
+            k2h = _first_crossing((r_s > 2.0 * rhalf[g_s]) & in_s, g_s, ng1)
+            k2c = torch.clamp(k2h - 1, 0, n - 1)
+            # a group without members of the type reports 0 (its crossing
+            # would land on the group's first slot and read the previous
+            # group's cumulative mass)
+            out[f"MassTwiceRhalfmass_{tname}"] = torch.where(
+                msum > 0, torch.where(k2h < n, Mcum_t[k2c], msum), 0.0)
+            m3 = msafe[:, None, None]
+            out[f"veldisp_{tname}"] = seg.segment_outer(
+                dvt, dvt, w, pfof, ng1, presorted=True) / m3
+            # shape from the mass-weighted inertia tensor about the centre
+            evals, evecs = torch.linalg.eigh(seg.segment_outer(
+                dx, dx, w, pfof, ng1, presorted=True) / m3)
+            lam = torch.clamp_min(evals[:, 2], 1e-30)
+            out[f"q_{tname}"] = torch.sqrt(
+                torch.clamp_min(evals[:, 1], 0.0) / lam)
+            out[f"s_{tname}"] = torch.sqrt(
+                torch.clamp_min(evals[:, 0], 0.0) / lam)
+            out[f"eigvec_{tname}"] = evecs
+            # rotational share of the kinetic energy about the type's L
+            jh = (L / torch.clamp_min(torch.sqrt(seg.sq3(L)),
+                                      1e-30)[:, None])[pfof]
+            jz = _dot3(torch.linalg.cross(dx, dvt), jh)
+            Rperp2 = torch.clamp_min(r2 - _dot3(dx, jh) ** 2, 1e-30)
+            ek_rot = msum_of(sel, 0.5 * mass * jz * jz / Rperp2)
+            ek_tot = msum_of(sel, 0.5 * mass * dvt2)
+            out[f"Krot_{tname}"] = ek_rot / torch.clamp_min(ek_tot, 1e-30)
+            # radius-scoped masses: RVmax, fixed apertures, SO radii
+            if rvmax is not None:
+                out[f"M_{tname}_rvmax"] = msum_of(
+                    sel & (r2 < rvmax[pfof] ** 2))
+            if r30 > 0.0:
+                out[f"M_{tname}_30kpc"] = msum_of(sel & (r2 < r30 * r30))
+            if r50 > 0.0:
+                out[f"M_{tname}_50kpc"] = msum_of(sel & (r2 < r50 * r50))
+            for sname, rad in scopes:
+                win = torch.where(sel & (r2 < rad[pfof] ** 2), mass, 0.0)
+                out[f"M_{sname}_{tname}"] = _ssum(win, pfof, ng1)
+                out[f"L_{sname}_{tname}"] = _ssum(Lp * win[:, None], pfof,
+                                                  ng1)
+        if with_temp_sfr:
+            if u is not None:
+                # reference substructureproperties.cxx:527-528, 592:
+                # Temp_* is the unweighted sum of internal energies,
+                # Temp_mean_* the mass-weighted mean; no unit conversion
+                out[f"Temp_{tname}"] = msum_of(sel, u)
+                out[f"Temp_mean_{tname}"] = msum_of(sel, u * mass) / msafe
+            if sfr is not None and not tname.endswith("nsf"):
+                out[f"SFR_{tname}"] = msum_of(sel, sfr)
+                out[f"SFR_mean_{tname}"] = out[f"SFR_{tname}"] / msafe
+            if zmet is not None:
+                out[f"Zmet_{tname}"] = msum_of(sel, zmet * mass) / msafe
+        if with_age and tage is not None:
+            out["t_mean_star"] = msum_of(sel, tage * mass) / msafe
+        return msum
+
+    for tname, tval in types:
+        sel = (ptype == tval) & tagged
+        msum_t = block(tname, sel, with_temp_sfr=(tname == "gas"),
+                       with_age=(tname == "star"))
+        if tname == "star" and zmet is not None:
+            out["Zmet_star"] = msum_of(sel, zmet * mass) / \
+                torch.clamp_min(msum_t, 1e-30)
+        if tname == "gas" and sfr is not None and full:
+            # star-forming / non-star-forming split (reference gas_sf /
+            # gas_nsf blocks, allvars.h:1385-1460)
+            block("gas_sf", sel & (sfr > 0), with_temp_sfr=True)
+            block("gas_nsf", sel & (sfr <= 0), with_temp_sfr=True)
+        if tname == "bh":
+            mmax = seg.segment_max(torch.where(sel, mass, 0.0), pfof, ng1)
+            out["M_bh_mostmassive"] = mmax
+            if bhmdot is not None:
+                out["acc_bh"] = msum_of(sel, bhmdot)
+                # accretion rate of the group's most massive black hole
+                ismax = sel & (mass >= mmax[pfof]) & (mmax[pfof] > 0)
+                out["acc_bh_mostmassive"] = seg.segment_max(
+                    torch.where(ismax, bhmdot, 0.0), pfof, ng1)
+    # zoom low-resolution "interloper" block; DM heavier than
+    # zoomlowmassdm also counts (substructureproperties.cxx:931)
+    if full:
+        sel_lr = ((ptype == LOWRESTYPES[0]) | (ptype == LOWRESTYPES[1])) & \
+            tagged
+        if zoomlowmassdm > 0.0:
+            sel_lr = sel_lr | ((ptype == C.DARKTYPE) &
+                               (mass > zoomlowmassdm) & tagged)
+        out["n_interloper"] = seg.segment_count(sel_lr, pfof, ng1)
+        out["M_interloper"] = msum_of(sel_lr)
+        for sname, rad in scopes:
+            out[f"M_{sname}_interloper"] = msum_of(
+                sel_lr & (r2 < rad[pfof] ** 2))
+    for key, v in out.items():      # zero the untagged row
+        v = v.clone()
+        v[0] = 0
+        out[key] = v
+    return out
+
+
 def compute_energies(vel, mass, pfof, W, num_groups: int, gcmvel,
                      Eratio: float) -> Props:
     """Bound mass fraction and potential / kinetic energy totals per group
@@ -440,19 +616,20 @@ def _energies(vel, mass, pfof, W, num_groups: int, gcmvel,
 
 def property_bundle(opt: C.Options, pos, vel, mass, pfof, num_groups: int,
                     *, W=None, ptype=None, boxsize=None,
-                    pertype: bool = False, **extras) -> Props:
+                    pertype: bool = False, u=None, sfr=None, zmet=None,
+                    tage=None, bhmdot=None) -> Props:
     """The property stage as the reference sequences it inside
     GetProperties (substructureproperties.cxx:266+): reference-frame choice
     (``Reference_frame_for_properties``: CM, most bound particle or
-    potential minimum, frame selection :327-340), core properties,
-    apertures and profiles, the RVmax block and binding energies."""
-    if pertype:
-        raise NotImplementedError("per-type (baryon) properties are not "
-                                  "ported yet")
+    potential minimum, frame selection :327-340), core properties, the
+    per-type blocks (``pertype``, with the hydro fields ``u``, ``sfr``,
+    ``zmet``, ``tage``, ``bhmdot`` where the snapshot has them), apertures
+    and profiles, the RVmax block and binding energies."""
     ptype = None if ptype is None else torch.as_tensor(ptype,
                                                        device=pos.device)
-    pfof, pos, vel, mass, W, ptype = group_sorted(pfof, pos, vel, mass, W,
-                                                  ptype)
+    pfof, pos, vel, mass, W, ptype, u, sfr, zmet, tage, bhmdot = \
+        group_sorted(pfof, pos, vel, mass, W, ptype, u, sfr, zmet, tage,
+                     bhmdot)
     ng1 = num_groups + 1
     refpos = refvel = None
     if opt.iPropertyReferencePosition != C.PROPREFCM and W is not None:
@@ -482,6 +659,15 @@ def property_bundle(opt: C.Options, pos, vel, mass, pfof, num_groups: int,
     # centre of every radius-dependent stage below (the reference
     # re-references all positions to cmref up front, :320-340)
     ref_c = refpos if refpos is not None else pr["gcm"]
+    if pertype and ptype is not None:
+        to_int = 1.0 / opt.lengthtokpc if opt.lengthtokpc > 0 else 0.0
+        pr.update(_pertype(
+            pos, vel, mass, ptype, pfof, num_groups, refpos=ref_c,
+            refvel=pr["gcmvel"], u=u, sfr=sfr, zmet=zmet, tage=tage,
+            bhmdot=bhmdot, rvmax=pr["gRmaxvel"], r200c=pr["gR200c"],
+            r200m=pr["gR200m"], r500c=pr["gR500c"], rBN98=pr["gRBN98"],
+            r30=30.0 * to_int, r50=50.0 * to_int,
+            zoomlowmassdm=float(opt.zoomlowmassdm)))
     if opt.iaperturecalc or opt.iprofilecalc:
         to_int = 1.0 / opt.lengthtokpc if opt.lengthtokpc > 0 else 1.0
         aps = tuple(a * to_int for a in opt.aperture_values_kpc) \

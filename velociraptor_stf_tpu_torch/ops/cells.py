@@ -1,6 +1,6 @@
 """Uniform cell grid and Morton keys (port of
 velociraptor_stf_tpu/ops/cells.py: ``build_grid``, ``cell_coords``,
-``bin_particles`` and ``morton_keys``).
+``pack_cells``, ``unpack_cells``, ``bin_particles`` and ``morton_keys``).
 
 ``build_grid`` is host numpy in the reference too; its logic is copied here
 because the reference module imports jax.  A cell is at least the search
@@ -98,6 +98,14 @@ def pack_cells(coords: torch.Tensor, grid: CellGrid) -> torch.Tensor:
     """(..., 3) cell coordinates -> int64 linear cell ids."""
     _, ny, nz = grid.ncells
     return (coords[..., 0] * ny + coords[..., 1]) * nz + coords[..., 2]
+
+
+def unpack_cells(cid: torch.Tensor, grid: CellGrid) -> torch.Tensor:
+    """int64 linear cell ids -> (..., 3) cell coordinates."""
+    _, ny, nz = grid.ncells
+    return torch.stack([torch.div(cid, ny * nz, rounding_mode="floor"),
+                        torch.div(cid, nz, rounding_mode="floor") % ny,
+                        cid % nz], -1)
 
 
 def bin_particles(pos: torch.Tensor, grid: CellGrid, periodic: bool = False

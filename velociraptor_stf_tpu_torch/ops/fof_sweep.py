@@ -309,26 +309,33 @@ def _fixpoint(sweep_fn: Callable[[torch.Tensor], torch.Tensor],
     return labels, sweeps
 
 
-def _renumber(labels: torch.Tensor, ctx: FofCtx, min_size: int
-              ) -> Tuple[torch.Tensor, int]:
-    """pfof in original order: ids 1..ng by decreasing size over real slots,
-    ties by lowest original index, 0 below ``min_size`` (reference
-    ``_renumber_masked``)."""
-    real = torch.nonzero(ctx.is_real).squeeze(1)
-    lab = labels[real]
-    src = ctx.src[real]
-    sizes = torch.bincount(lab, minlength=ctx.ns)
-    min_id = torch.full((ctx.ns,), BIG_I32, dtype=torch.int64,
+def renumber_roots(lab: torch.Tensor, src: torch.Tensor, nroots: int,
+                   min_size: int) -> Tuple[torch.Tensor, int]:
+    """(gid, ng): the group id of each element from its root label
+    ``lab`` (< ``nroots``): ids 1..ng by decreasing size, equal sizes by
+    the lowest ``src`` (original index) among their members, 0 below
+    ``min_size`` (reference ``renumber_by_size`` / ``_renumber_masked``)."""
+    sizes = torch.bincount(lab, minlength=nroots)
+    min_id = torch.full((nroots,), BIG_I32, dtype=torch.int64,
                         device=lab.device).scatter_reduce_(0, lab, src,
                                                            "amin")
     roots = torch.nonzero(sizes >= max(min_size, 1)).squeeze(1)
     order = torch.argsort(min_id[roots], stable=True)
     order = order[torch.argsort(-sizes[roots][order], stable=True)]
     ng = int(roots.shape[0])
-    gid_of_root = torch.zeros(ctx.ns, dtype=torch.int64, device=lab.device)
+    gid_of_root = torch.zeros(nroots, dtype=torch.int64, device=lab.device)
     gid_of_root[roots[order]] = torch.arange(1, ng + 1, device=lab.device)
-    pfof = torch.zeros(ctx.n, dtype=torch.int64, device=lab.device)
-    pfof[src] = gid_of_root[lab]
+    return gid_of_root[lab], ng
+
+
+def _renumber(labels: torch.Tensor, ctx: FofCtx, min_size: int
+              ) -> Tuple[torch.Tensor, int]:
+    """pfof in original order from the labels of the real slots."""
+    real = torch.nonzero(ctx.is_real).squeeze(1)
+    src = ctx.src[real]
+    gid, ng = renumber_roots(labels[real], src, ctx.ns, min_size)
+    pfof = torch.zeros(ctx.n, dtype=torch.int64, device=src.device)
+    pfof[src] = gid
     return pfof, ng
 
 

@@ -11,7 +11,8 @@ in the logs.  Every such decision increments a named counter here;
 asserted on in tests.
 
 The port counts ``fof3d_sweeps`` and ``fof6d_sweeps``
-(``ops/fof_sweep.py``).  Keys of the JAX package:
+(``ops/fof_sweep.py``) and ``baryon_pairs``, the (baryon, tagged DM)
+candidate pairs of the association (``models/baryons.py``).  Keys of the JAX package:
   subset_batched_structures / subset_batched_particles
       structures (and their padded particle counts) whose candidate
       search ran in a vmapped class batch
