@@ -4,9 +4,12 @@
     python3 chip_smoke.py [--n N] [--cli-n N] [--profile PATH]
 
 ``--profile`` adds a device-time table by operator and tables of
-synchronised spans of the field search (``fof_breakdown``) and of the hydro
+synchronised spans of the field search (``fof_breakdown``), of the hydro
 path (``hydro_breakdown``: the association's cell sorts, window search,
-gathers, metric and reductions, the combined unbind, the per-type block).
+gathers, metric and reductions, the combined unbind, the per-type block)
+and of the substructure recursion (``subsub_breakdown``: the global
+density, the padded contexts, grid, R and fit, the subset search, the
+merger cores, the level-wide unbind).
 
 Builds the port's CUDA kernels from ``velociraptor_stf_tpu_torch/kernels/
 csrc`` and drives the port on the card, in phases:
@@ -59,7 +62,20 @@ csrc`` and drives the port on the card, in phases:
 7. the bucket tree: one 1,200,000-member group (above ``MAX_DIRECT``)
    through ``compute_potential`` (the tree) and through the direct kernel;
    the JAX package's tree tolerance against the exact sum (median rel
-   error < 0.005, 99th percentile < 0.03); times of both.
+   error < 0.005, 99th percentile < 0.03); times of both;
+8. the hydro path at 256^3 (every 6th particle a baryon, the baryon
+   search on), twice: launches, peak memory, equal runs, the catalog and
+   the association against float64 numpy, the plain versions' ids at
+   2^18;
+9. the substructure path: find_structures at 256^3 with the bench's
+   search options, the substructure search (``VR_BENCH_SUBSTRUCTURE=1``)
+   and the sample config's substructure and merger-core blocks, twice:
+   stage times and the recursion's laps, structures searched and
+   substructures found per level, cores promoted, launches, peak memory;
+   both runs equal bit for bit, the hierarchy consistent, every member of
+   a top-level structure bound; then three planted hosts with subhalos
+   through find_structures on the card and on the CPU: equal ids and
+   hierarchy, at least two substructures.
 
 Any failure exits non-zero.  The last line of stdout is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -98,6 +114,13 @@ Iterate_cm_flag=0
 Binary_output=1
 """
 TREE_N = 1_200_000
+# phase 9: the slice's options with the substructure search on (bench.py's
+# VR_BENCH_SUBSTRUCTURE=1 variant); the sample config brings its
+# substructure and merger-core blocks
+SUB_OVERRIDES = """
+Search_for_substructure=1
+Iterative_searchflag=1
+"""
 # Peak rates of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32 on
 # the CUDA cores, i.e. 132 SMs x 128 FP32 lanes x 2 (FMA) x 1.98 GHz, and
 # 3.35 TB/s of device memory.  At the same clock an SM's four schedulers
@@ -673,10 +696,12 @@ def potential_edge_case(torch, dev) -> float:
     return worst
 
 
-def check_catalog(np, res, n: int, minsize: int) -> None:
+def check_catalog(np, res, n: int, minsize: int, by_size: bool = True
+                  ) -> None:
     """Finite energies; ids 1..ngroups, each at least minsize, numbered by
-    decreasing size; properties of ngroups + 1 rows, the bulk ones
-    finite."""
+    decreasing size (``by_size``: substructure ids follow the field
+    structures, and a host shrinks when its substructure is carved out);
+    properties of ngroups + 1 rows, the bulk ones finite."""
     if res.pfof.shape != (n,) or res.W is None or res.W.shape != (n,):
         raise AssertionError("main path: wrong output shapes")
     if not np.isfinite(res.W).all():
@@ -687,7 +712,7 @@ def check_catalog(np, res, n: int, minsize: int) -> None:
     if sizes.shape[0] != res.ngroups + 1:
         raise AssertionError("main path: group id above ngroups")
     s = sizes[1:]
-    if (s < minsize).any() or (s[1:] > s[:-1]).any():
+    if (s < minsize).any() or (by_size and (s[1:] > s[:-1]).any()):
         raise AssertionError("main path: groups not renumbered by size")
     for k, v in res.props.items():
         if v.shape[0] != res.ngroups + 1:
@@ -1246,6 +1271,179 @@ def hydro_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def sub_options(n: int, C, cfg_path: Path):
+    """Phase 9's options: the slice's, with the substructure search."""
+    cfg_path.write_text(SLICE_CFG.read_text() + SLICE_OVERRIDES +
+                        SUB_OVERRIDES)
+    return slice_options(n, C, BOXSIZE, cfg_path)
+
+
+def check_hierarchy(np, res, maxlevel: int) -> int:
+    """Parents in range and never the group itself, level = parent's
+    level + 1 (0 for field structures), hostid the top ancestor (-1 for
+    field structures), no cycle.  Returns the deepest level."""
+    ng = res.ngroups
+    parent, host, level = (np.asarray(a, np.int64) for a in (
+        res.parent, res.hostid, res.hierarchy_level))
+    if not (len(parent) == len(host) == len(level) == ng + 1):
+        raise AssertionError("hierarchy: arrays of the wrong length")
+    g = np.arange(1, ng + 1)
+    p = parent[1:]
+    if ((p < 0) | (p > ng) | (p == g)).any():
+        raise AssertionError("hierarchy: parent out of range or itself")
+    want_level = np.where(p > 0, level[np.maximum(p, 0)] + 1, 0)
+    if not np.array_equal(level[1:], want_level):
+        raise AssertionError("hierarchy: level != parent's level + 1")
+    top = g.copy()
+    for _ in range(maxlevel + 2):
+        nxt = parent[top]
+        top = np.where(nxt > 0, nxt, top)
+    if (parent[top] > 0).any():
+        raise AssertionError("hierarchy: a cycle (no top after "
+                             f"{maxlevel + 2} steps)")
+    if not np.array_equal(host[1:], np.where(top == g, -1, top)):
+        raise AssertionError("hierarchy: hostid is not the top ancestor")
+    return int(level.max())
+
+
+def check_bound_tops(np, res, mass, vel, eratio: float) -> int:
+    """Every member of a top-level structure (a field halo with its
+    substructures' members, the set the field unbind left) is bound in
+    the frame of that set's mean velocity: Eratio * T + W < 0, to 1e-4
+    |W| (the ejection loop carries its sums in float32).  Returns the
+    members checked."""
+    ng = res.ngroups
+    g = res.pfof.astype(np.int64)
+    host = np.asarray(res.hostid, np.int64)
+    top = np.where(g > 0, np.where(host[g] > 0, host[g], g), 0)
+    m64, v64 = mass.astype(np.float64), vel.astype(np.float64)
+    gm = np.bincount(top, weights=m64, minlength=ng + 1)
+    vcm = np.stack([np.bincount(top, weights=m64 * v64[:, k],
+                                minlength=ng + 1) for k in range(3)], 1)
+    vcm /= np.maximum(gm, 1e-30)[:, None]
+    T = 0.5 * m64 * ((v64 - vcm[top]) ** 2).sum(1)
+    W = res.W.astype(np.float64)
+    loose = (top > 0) & (eratio * T + W > 1e-4 * np.abs(W))
+    if loose.any():
+        raise AssertionError(f"substructure path: {int(loose.sum())} "
+                             "members of top-level structures unbound")
+    return int((top > 0).sum())
+
+
+def planted_options(C, G):
+    """The planted check's options: FOF3D field halos (one per planted
+    host), tests/test_substructure.py's substructure options, unbinding
+    on (as tests/test_torch_subcatalog.py::planted_options)."""
+    opt = C.Options()
+    opt.ellphys, opt.ellxscale, opt.ellhalophysfac = 0.2, 0.25, 4.0
+    opt.fofbgtype = C.FOF3D
+    opt.MinSize = opt.HaloMinSize = 20
+    opt.iSubSearch, opt.iiterflag = 1, 1
+    opt.ellthreshold, opt.Vratio, opt.thetaopen, opt.ellfac = \
+        2.5, 2.0, 0.10, 1.0
+    opt.uinfo.unbindflag, opt.uinfo.Eratio, opt.iBoundHalos = 1, 1.0, 1
+    opt.G = G
+    C.config_check(opt)
+    return opt
+
+
+def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
+    """Phase 9: the substructure path at full width.  Returns (the
+    options, the kernels' launch counts over the last run)."""
+    from velociraptor_stf_tpu_torch.io.synthetic import (G_KMS,
+                                                         planted_subhalos)
+    from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+    from velociraptor_stf_tpu_torch.utils import telemetry
+
+    tmp = Path(tempfile.mkdtemp(prefix="vr_sub_"))
+    try:
+        opt = sub_options(n, C, tmp / "sub.cfg")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first = None
+    for rep in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        telemetry.reset()
+        t0 = time.perf_counter()
+        res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
+                              device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        tele = telemetry.snapshot()
+        digest = hashlib.sha256(res.pfof.tobytes() + res.W.tobytes() +
+                                res.parent.tobytes())
+        log(f"phase 9 run {rep} ({'warm-up' if rep == 0 else 'timed'}): "
+            f"ngroups {res.ngroups} timings {json.dumps(res.timings)} "
+            f"wall {wall:.3f} s; ids, potentials and parents sha256 "
+            f"{digest.hexdigest()[:16]}")
+        check_catalog(np, res, len(pos), opt.MinSize, by_size=False)
+        deepest = check_hierarchy(np, res, C.MAXSUBLEVEL)
+        if first is None:
+            first = res
+        elif not (same_catalog(np, res, first) and all(
+                np.array_equal(getattr(res, k), getattr(first, k))
+                for k in ("hostid", "parent", "hierarchy_level"))):
+            raise AssertionError("substructure path: two runs on the same "
+                                 "input differ")
+    unbinds = 1
+    for lv in range(1, C.MAXSUBLEVEL + 1):
+        searched = tele.get(f"subsub_level{lv}_structures")
+        if searched is None:
+            break
+        cand = tele.get(f"subsub_level{lv}_candidates", 0)
+        found = tele.get(f"subsub_level{lv}_found", 0)
+        unbinds += cand > 0
+        log(f"phase 9 level {lv}: {searched} structures searched, {cand} "
+            f"candidates, {found} substructures found" +
+            ("" if found else " (no substructure at this level)"))
+    nsub = int((res.parent[1:] > 0).sum())
+    log(f"phase 9 hierarchy: {res.ngroups - nsub} field structures, {nsub} "
+        f"substructures, deepest level {deepest}; "
+        f"{tele.get('subsub_cores_promoted', 0)} merger cores promoted")
+    log(f"phase 9 launches {json.dumps(counts)} peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"two runs equal bit for bit ({len(res.props)} property arrays)")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing or counts["potential"] < unbinds:
+        raise AssertionError(f"substructure path: kernels not launched "
+                             f"{missing}, potential launched "
+                             f"{counts['potential']} times (the field "
+                             f"unbind and the level unbinds need {unbinds})")
+    if {"fof", "unbind", "substructure", "properties", "so"} - \
+            set(res.timings):
+        raise AssertionError(f"substructure path: stages "
+                             f"{sorted(res.timings)}")
+    nb = check_bound_tops(np, res, mass, vel, opt.uinfo.Eratio)
+    log(f"phase 9 boundness: all {nb} members of top-level structures "
+        "bound")
+    del res, first
+
+    # three planted hosts with subhalos: the card against the CPU
+    ppos, pvel, pmass, host = planted_subhalos(3, seed=3, offset=4.0)
+    popt = planted_options(C, G_KMS)
+    got = find_structures(popt, ppos, pvel, pmass, boxsize=16.0,
+                          device=dev)
+    want = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
+                           boxsize=16.0, device="cpu")
+    same = got.ngroups == want.ngroups and \
+        np.array_equal(got.pfof, want.pfof) and all(
+            np.array_equal(getattr(got, k), getattr(want, k))
+            for k in ("parent", "hostid", "hierarchy_level"))
+    nfound = int((want.parent[1:] > 0).sum())
+    if not same or nfound < 2:
+        raise AssertionError(
+            f"planted subhalos: card {got.ngroups} groups, host "
+            f"{want.ngroups}; {int((got.pfof != want.pfof).sum())} ids "
+            f"differ; {nfound} substructures found (need 2)")
+    log(f"phase 9 planted subhalos: {want.ngroups} groups, {nfound} "
+        "substructures, ids, parent, hostid and level equal on the card "
+        "and on the CPU")
+    return opt, counts
+
+
 def span_table(torch, targets, run, title: str, plain_ms: float,
                path: str) -> None:
     """A table of synchronised spans of one ``run()``: each of ``targets``
@@ -1381,6 +1579,56 @@ def hydro_breakdown(torch, opt, pos, vel, mass, ptype, extras, dev,
                plain, path)
 
 
+def subsub_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
+    """The span table of one substructure find_structures: the global
+    density and its leaf selection, the padded contexts, the grid, R and
+    the fit, the subset search with its edge passes, the merger cores and
+    the level-wide unbind."""
+    from velociraptor_stf_tpu_torch.models import bgfield, localfield
+    from velociraptor_stf_tpu_torch.models import pipeline, substructure
+    from velociraptor_stf_tpu_torch.models import unbind
+    from velociraptor_stf_tpu_torch.ops import fof, segments
+
+    args = [torch.from_numpy(a).to(dev) for a in (pos, vel, mass)]
+
+    def run():
+        pipeline.find_structures(opt, *args, boxsize=BOXSIZE, device=dev)
+
+    plain = wall_ms(torch, run)
+    S = substructure
+    targets = [
+        (pipeline.halos, "search_full_set", "search_full_set"),
+        (unbind, "check_unbound_groups", "check_unbound_groups"),
+        (S, "search_sub_sub", "search_sub_sub"),
+        (S, "_global_density", "_global_density"),
+        (localfield, "velocity_density", "velocity_density"),
+        (localfield, "_leaf_densities", "_leaf_densities"),
+        (localfield, "median_partition", "median_partition (leaves)"),
+        (segments, "smallest_k", "smallest_k"),
+        (S, "_prep_level", "_prep_level"),
+        (S, "_outliers_level", "_outliers_level"),
+        (S, "_ratios", "_ratios"),
+        (bgfield, "background_grid", "background_grid"),
+        (bgfield, "denv_ratio", "denv_ratio"),
+        (bgfield, "distribution", "distribution"),
+        (bgfield, "refine", "refine"),
+        (bgfield, "_skewgauss_fit", "_skewgauss_fit (host)"),
+        (S, "search_subset", "search_subset"),
+        (fof, "build_edges", "build_edges"),
+        (fof, "fof_labels_from_edges", "fof_labels_from_edges"),
+        (fof, "attach_rounds", "attach_rounds"),
+        (S, "merge_linked_groups", "merge_linked_groups"),
+        (S, "significance_filter", "significance_filter"),
+        (S, "_cores_and_merges", "_cores_and_merges"),
+        (S, "halo_core_search", "halo_core_search"),
+        (S, "_phase_tensor_growth", "_phase_tensor_growth"),
+        (S, "_unbind_level", "_unbind_level"),
+        (pipeline.props_mod, "property_bundle", "property_bundle"),
+        (pipeline, "_so_stage", "_so_stage")]
+    span_table(torch, targets, run, "subsub breakdown: find_structures",
+               plain, path)
+
+
 def profile_run(torch, opt, pos, vel, mass, dev, path: str) -> None:
     """One more find_structures run under torch.profiler: device time by
     operator (table to ``path``), the four kernels' share, and the
@@ -1437,7 +1685,8 @@ def main() -> int:
                     help="after the checks, profile one more find_structures "
                     "and search_and_unbind run and append the device-time "
                     "tables by operator and the span tables of the field "
-                    "search and of the hydro path to PATH")
+                    "search, of the hydro path and of the substructure "
+                    "recursion to PATH")
     args = ap.parse_args()
 
     import torch
@@ -1580,6 +1829,13 @@ def main() -> int:
     for e in report:
         e["launches_hydro"] = hydro_counts[e["name"]]
     log(f"phase 8 hydro path: ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sopt, sub_counts = subsub_case(torch, np, dev, C, kernels, pos, vel,
+                                   mass, n)
+    for e in report:
+        e["launches_subsub"] = sub_counts[e["name"]]
+    log(f"phase 9 substructure path: ok in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
         try:
@@ -1589,6 +1845,7 @@ def main() -> int:
             fof_breakdown(torch, popt, pos, vel, mass, dev, args.profile)
             hydro_breakdown(torch, hopt, pos, vel, mass, ptype, extras, dev,
                             args.profile)
+            subsub_breakdown(torch, sopt, pos, vel, mass, dev, args.profile)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     log(f"gpu: {card}")

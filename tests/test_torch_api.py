@@ -25,6 +25,7 @@ from velociraptor_stf_tpu_torch import api as TA
 from velociraptor_stf_tpu_torch import particles as TPS
 
 from test_torch_properties import CFG, assert_props_match
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOX, N = 25.0, 1 << 14
 CFG_TEXT = (Path(__file__).resolve().parents[1] / CFG).read_text() + """
@@ -190,9 +191,9 @@ def test_invoke_velociraptor_wrapper(mock, tmp_path):
 
 
 def test_unported_modes_raise(mock):
-    """Substructure raises find_structures' NotImplementedError (invoke
-    handles no mode itself); mixed particle types, once refused too, now
-    give the per-type columns."""
+    """Mixed particle types and substructure, both once refused, now run
+    through invoke: the per-type columns, and the substructure catalog
+    equal to the JAX API's (ids, hostid, parent, properties)."""
     pos, vel, mass, _ = mock
     cosmo, sim = _state(TA)
     session = TA.VelociraptorSession(config_text=CFG_TEXT)
@@ -205,8 +206,25 @@ def test_unported_modes_raise(mock):
         np.bincount(out["group_id"][ptype == 0],
                     minlength=out["ngroups"] + 1)[1:])
     session.opt.iSubSearch = 1
-    with pytest.raises(NotImplementedError):
-        session.invoke(pos, vel, mass, cosmo=cosmo, sim=sim, device="cpu")
+    got = session.invoke(pos, vel, mass, cosmo=cosmo, sim=sim, device="cpu")
+    jsession = JA.VelociraptorSession(config_text=CFG_TEXT)
+    jsession.opt.iSubSearch = 1
+    old = os.environ.get("VR_MESH")
+    os.environ["VR_MESH"] = "1"                # one device, no mesh
+    try:
+        want = jsession.invoke(pos, vel, mass, cosmo=_state(JA)[0],
+                               sim=_state(JA)[1])
+    finally:
+        if old is None:
+            os.environ.pop("VR_MESH")
+        else:
+            os.environ["VR_MESH"] = old
+    assert got["ngroups"] == want["ngroups"]
+    np.testing.assert_array_equal(got["group_id"], want["group_id"])
+    for key in ("hostid", "parent"):
+        np.testing.assert_array_equal(got[key], np.asarray(want[key]))
+    assert_props_match(got["properties"], want["properties"],
+                       got["ngroups"])
 
 
 @pytest.mark.parametrize("kind", ["tensors", "arrays"])

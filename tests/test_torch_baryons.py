@@ -34,6 +34,7 @@ from velociraptor_stf_tpu_torch.ops import fof as TF
 from velociraptor_stf_tpu_torch.utils import telemetry
 
 from test_torch_properties import CFG, assert_props_match
+from torch_threads import one_torch_thread  # noqa: F401
 
 G = 43.0211349
 

@@ -26,6 +26,7 @@ from velociraptor_stf_tpu_torch.models import pipeline as TP
 
 from test_torch_properties import (CFG, assert_props_match, newton_settled,
                                    slice_options)
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOX, N = 32.0, 1 << 15
 # the bench's search options over the sample config, ASCII catalogs

@@ -24,6 +24,7 @@ from velociraptor_stf_tpu_torch.models import baryons as TB
 from velociraptor_stf_tpu_torch.ops import fof as TF
 from velociraptor_stf_tpu_torch.ops.fof_sweep import SweepFof
 from velociraptor_stf_tpu_torch.validation import oracles
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 10.0
 

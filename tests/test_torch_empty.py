@@ -20,6 +20,7 @@ from velociraptor_stf_tpu_torch.io import gadget
 from velociraptor_stf_tpu_torch.models import pipeline as TP
 
 from test_torch_properties import CFG, slice_options
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(case):

@@ -24,6 +24,7 @@ from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import halos as thalos
 from velociraptor_stf_tpu_torch.ops import cells
 from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _opts(boxsize, n, fofbgtype=C.FOF6D, keepfof=0):

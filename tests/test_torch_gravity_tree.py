@@ -24,6 +24,7 @@ from velociraptor_stf_tpu.utils.config import UnbindInfo
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import unbind as TU
 from velociraptor_stf_tpu_torch.ops import gravity as TG
+from torch_threads import one_torch_thread  # noqa: F401
 
 G = 43.0211349
 CUT = 4096          # the JAX package's direct/tree cut off the TPU

@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's host modules behave as the
 originals: options and config parsing, the mock, the gadget reader and
-writer, ``convert.options`` and the float64 oracles.
+writer, ``convert.options``, the float64 oracles, the velocity-density
+cache and the substructure search's host (numpy) functions.
 
 Each test feeds the same input to both packages and asks for equal results
 (exact: the copies are the same numpy code)."""
@@ -23,6 +24,7 @@ from velociraptor_stf_tpu_torch.io import synthetic as tsynthetic
 from velociraptor_stf_tpu_torch.utils import config as TC
 from velociraptor_stf_tpu_torch.utils import units as tunits
 from velociraptor_stf_tpu_torch.validation import oracles as toracles
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p.name for p in (REPO / "examples").glob("*.cfg"))
@@ -217,3 +219,90 @@ def _assert_equal(got, want):
 def test_oracle_copy_matches(oracle_inputs, name):
     args, kw, want = oracle_inputs[name]
     _assert_equal(getattr(toracles, name)(*args, **kw), want)
+
+
+def test_new_oracle_copies_match():
+    """outlier_fit_oracle and core_growth_oracle, copied with the
+    substructure search, on their tests/test_oracles.py inputs."""
+    rng = np.random.default_rng(17)
+    n = 20000
+    side = rng.uniform(size=n) < 0.6 / 1.7
+    R = np.where(side, 0.4 - np.abs(rng.normal(0, 0.6, n)),
+                 0.4 + np.abs(rng.normal(0, 1.1, n)))
+    R[:n // 50] = rng.uniform(4.0, 8.0, n // 50)
+    for skewfit in (True, False):
+        _assert_equal(toracles.outlier_fit_oracle(R, np.ones(n),
+                                                  skewfit=skewfit),
+                      joracles.outlier_fit_oracle(R, np.ones(n),
+                                                  skewfit=skewfit))
+    rng = np.random.default_rng(23)
+    pos = np.concatenate([rng.normal(0, 0.1, (200, 3)),
+                          rng.normal(0.8, 0.1, (150, 3)),
+                          rng.normal(0.4, 0.4, (300, 3))])
+    vel = np.concatenate([rng.normal(0, 40, (200, 3)),
+                          rng.normal(100, 30, (150, 3)),
+                          rng.normal(50, 60, (300, 3))])
+    core = np.concatenate([np.ones(200), np.full(150, 2),
+                           np.zeros(300)]).astype(np.int32)
+    args = (pos, vel, np.ones(650), np.ones(650, bool),
+            np.zeros(650, np.int32), core, 2)
+    _assert_equal(toracles.core_growth_oracle(*args, iters=3),
+                  joracles.core_growth_oracle(*args, iters=3))
+
+
+def test_density_cache_copy_matches(tmp_path):
+    """io/cache.py: either package reads what the other wrote, and both
+    refuse a cache of other particles."""
+    from velociraptor_stf_tpu.io import cache as jcache
+    from velociraptor_stf_tpu_torch.io import cache as tcache
+
+    rng = np.random.default_rng(1)
+    dens = rng.uniform(1, 2, 500).astype(np.float32)
+    pids = np.sort(rng.choice(10000, 500, replace=False))
+    for w, r in ((jcache, tcache), (tcache, jcache)):
+        path = str(tmp_path / f"{w.__name__}.localden")
+        w.write_local_velocity_density(path, dens, pids)
+        np.testing.assert_array_equal(
+            r.read_local_velocity_density(path, pids), dens)
+        assert r.read_local_velocity_density(path, pids[1:]) is None
+        assert r.read_local_velocity_density(path + "x", pids) is None
+        groups = {"l1g1": dens[:10]}
+        w.write_density_cache(path + "2", groups, pids)
+        got = r.read_density_cache(path + "2", pids)
+        np.testing.assert_array_equal(got["l1g1"], groups["l1g1"])
+
+
+@pytest.mark.parametrize("name", ["_group_phase_stats",
+                                  "merge_substructures_cores_phase",
+                                  "merge_substructures_phase",
+                                  "adjust_to_cm", "virial_quantities"])
+def test_host_function_copies_match(name):
+    """The host (numpy) functions copied into the port: the three phase
+    merges' pieces and the single-halo scalings, on one input."""
+    from velociraptor_stf_tpu.models import haloprops as JH
+    from velociraptor_stf_tpu.models import substructure as JS
+    from velociraptor_stf_tpu_torch.models import haloprops as TH
+    from velociraptor_stf_tpu_torch.models import substructure as TS
+
+    rng = np.random.default_rng(7)
+    n = 1200
+    pos = (rng.normal(0, 0.1, (n, 3)) +
+           rng.integers(0, 4, (n, 1)) * np.array([0.15, 0, 0])
+           ).astype(np.float32)
+    vel = rng.normal(0, 20, (n, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    pfof = rng.integers(0, 5, n).astype(np.int32)
+    if name == "_group_phase_stats":
+        args = (pos, vel, mass, pfof, 4)
+    elif name in ("merge_substructures_cores_phase",
+                  "merge_substructures_phase"):
+        args = (pos, vel, mass, pfof, 2, 2, 3.0)
+    elif name == "adjust_to_cm":
+        args = (pos, vel, mass)
+    else:
+        *_, r_s, mcum = JH.adjust_to_cm(pos, vel, mass)
+        args = (r_s, mcum, [0.99 * r_s[0], 0.1, 1.01 * r_s[-1]], 1.0,
+                200.0)
+    mod_j, mod_t = (JS, TS) if not name.startswith(("adjust", "virial")) \
+        else (JH, TH)
+    _assert_equal(getattr(mod_t, name)(*args), getattr(mod_j, name)(*args))

@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 # after a run: neither jax nor any module of the JAX package was imported
@@ -29,6 +30,7 @@ def _run(code: str) -> subprocess.CompletedProcess:
     env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(
         os.pathsep) if "cuda" not in p.lower())
     env["CUDA_HOME"] = str(REPO / "no-such-cuda")
+    env["OMP_NUM_THREADS"] = "1"      # as torch_threads.py, for the child
     return subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -119,15 +121,58 @@ def test_import_scan_covers_hydro_modules():
             "velociraptor_stf_tpu_torch/models/baryons.py"} <= files
 
 
+def test_import_scan_covers_substructure_modules():
+    """The ast scan reads the substructure recursion's modules too."""
+    files = {f.relative_to(REPO).as_posix()
+             for f in (REPO / "velociraptor_stf_tpu_torch").rglob("*.py")}
+    assert {f"velociraptor_stf_tpu_torch/{m}.py" for m in (
+        "ops/kdgrid", "models/localfield", "models/bgfield",
+        "models/substructure", "models/haloprops", "io/cache")} <= files
+
+
+def test_port_runs_substructure_without_jax():
+    """find_structures with iSubSearch = 1 and the merger-core search on
+    planted subhalos, with jax never imported."""
+    code = """
+import sys
+import numpy as np
+from velociraptor_stf_tpu_torch.io.synthetic import G_KMS, planted_subhalos
+from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+from velociraptor_stf_tpu_torch.utils import config as C
+
+pos, vel, mass, host = planted_subhalos(2, seed=3, offset=4.0)
+opt = C.Options()
+opt.ellphys, opt.ellxscale, opt.ellhalophysfac = 0.2, 0.25, 4.0
+opt.fofbgtype = C.FOF3D
+opt.MinSize = opt.HaloMinSize = 20
+opt.iSubSearch, opt.iiterflag, opt.iHaloCoreSearch = 1, 1, 2
+opt.uinfo.unbindflag, opt.iBoundHalos, opt.G = 1, 2, G_KMS
+C.config_check(opt)
+res = find_structures(opt, pos, vel, mass, boxsize=12.0, device="cpu")
+assert res.ngroups > 2 and (res.parent > 0).any(), res.ngroups
+assert {"fof", "unbind", "substructure", "subsub_outliers"} <= \
+    set(res.timings)
+""" + NO_JAX_PACKAGE + """
+print("OK", res.ngroups)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_kernels_import_without_nvcc():
     code = """
 import sys
 import velociraptor_stf_tpu_torch
 from velociraptor_stf_tpu_torch import convert, kernels
 from velociraptor_stf_tpu_torch.kernels import _build, fof_sweep, potential
-from velociraptor_stf_tpu_torch.models import (baryons, halos, pipeline,
-                                               properties, unbind)
-from velociraptor_stf_tpu_torch.ops import cells, fof, gravity, segments, so
+from velociraptor_stf_tpu_torch.models import (baryons, bgfield, halos,
+                                               haloprops, localfield,
+                                               pipeline, properties,
+                                               substructure, unbind)
+from velociraptor_stf_tpu_torch.ops import (cells, fof, gravity, kdgrid,
+                                            segments, so)
+from velociraptor_stf_tpu_torch.io import cache
 from velociraptor_stf_tpu_torch import api, cli, particles
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",

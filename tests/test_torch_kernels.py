@@ -720,3 +720,48 @@ def test_cuda_hydro_path_matches_cpu(cuda):
     g_gpu = search_baryons(opt, *(a.to(cuda) for a in args), boxsize=box,
                            vscale2=4.0e4)
     assert torch.equal(g_gpu.cpu(), g_cpu) and bool((g_cpu > 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cores", [0, 2])
+def test_cuda_substructure_path_matches_cpu(cuda, cores):
+    """find_structures with the substructure search (and the merger-core
+    search) on planted subhalos, on the card against the CPU: ids,
+    hierarchy equal; the field and the level unbinds launch the
+    potential; the leaf selection, grid and outliers on the card against
+    the CPU."""
+    from velociraptor_stf_tpu_torch import kernels
+    from velociraptor_stf_tpu_torch.io.synthetic import (G_KMS,
+                                                         planted_subhalos)
+    from velociraptor_stf_tpu_torch.models import bgfield, localfield
+    from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+    from velociraptor_stf_tpu_torch.utils import config as C
+
+    pos, vel, mass, _ = planted_subhalos(3, seed=3, offset=4.0)
+    opt = C.Options()
+    opt.ellphys, opt.ellxscale, opt.ellhalophysfac = 0.2, 0.25, 4.0
+    opt.fofbgtype = C.FOF3D
+    opt.MinSize = opt.HaloMinSize = 20
+    opt.iSubSearch, opt.iiterflag, opt.iHaloCoreSearch = 1, 1, cores
+    opt.uinfo.unbindflag, opt.iBoundHalos, opt.G = 1, 2, G_KMS
+    C.config_check(opt)
+    want = find_structures(opt, pos, vel, mass, boxsize=16.0, device="cpu")
+    kernels.reset_launches()
+    got = find_structures(opt, pos, vel, mass, boxsize=16.0, device=cuda)
+    assert got.ngroups == want.ngroups and (want.parent > 0).sum() >= 2
+    np.testing.assert_array_equal(got.pfof, want.pfof)
+    for k in ("parent", "hostid", "hierarchy_level"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    assert kernels.LAUNCHES["potential"] >= 3
+
+    t = [torch.from_numpy(a) for a in (pos, vel, mass)]
+    d_cpu, c_cpu, _ = localfield.velocity_density(t[0], t[1],
+                                                  return_candidates=True)
+    d_gpu, c_gpu, _ = localfield.velocity_density(
+        t[0].to(cuda), t[1].to(cuda), return_candidates=True)
+    assert torch.equal(c_gpu.cpu(), c_cpu)
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=0)
+    g_cpu = bgfield.background_grid(*t, 100)
+    g_gpu = bgfield.background_grid(*(a.to(cuda) for a in t), 100)
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -27,6 +27,7 @@ from velociraptor_stf_tpu_torch.models import properties as TPR
 
 from test_torch_baryons import BOX, hydro_mock, hydro_options
 from test_torch_properties import assert_props_match
+from torch_threads import one_torch_thread  # noqa: F401
 
 G = 43.0211349
 EXTRAS = ("u", "sfr", "zmet", "tage", "bhmdot")

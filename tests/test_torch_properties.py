@@ -36,6 +36,7 @@ from velociraptor_stf_tpu.validation import oracles
 
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import properties as TP
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = "examples/sample_dmcosmological_run.cfg"
 EIGVEC_KEYS = ("geigvec", "RVmax_eigvec")

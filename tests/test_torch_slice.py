@@ -22,6 +22,7 @@ from velociraptor_stf_tpu.validation import oracles
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models.pipeline import (find_structures,
                                                        search_and_unbind)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bench_opts(boxsize, n, **over):
@@ -143,20 +144,13 @@ def test_slice_keepfof_envelopes():
     assert res.W is None and "unbind" not in res.timings
 
 
-@pytest.mark.parametrize("what", ["iSubSearch", "iSingleHalo", "mesh",
-                                  "baryon-mesh"])
+@pytest.mark.parametrize("what", ["mesh", "baryon-mesh"])
 def test_unported_modes_raise(what):
-    """Both entry points refuse the modes not ported yet, and the baryon
-    association a device mesh."""
+    """Both entry points refuse a device mesh, not ported yet, and so does
+    the baryon association."""
     pos = np.zeros((8, 3), np.float32)
     opt = _bench_opts(10.0, 8)
-    kw = {}
-    if what == "iSubSearch":
-        opt.iSubSearch = 1
-    elif what == "iSingleHalo":
-        opt.iSingleHalo = 1
-    else:
-        kw["mesh"] = object()
+    kw = {"mesh": object()}
     if what == "baryon-mesh":
         from velociraptor_stf_tpu_torch.models.baryons import search_baryons
 

@@ -18,6 +18,7 @@ import torch
 from velociraptor_stf_tpu.ops import so as JSO
 
 from velociraptor_stf_tpu_torch.ops import so as TSO
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 20.0
 # (centre, radius, members): four octave classes of search radius; the

@@ -25,6 +25,7 @@ from velociraptor_stf_tpu.validation import oracles
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import unbind as TU
 from velociraptor_stf_tpu_torch.ops import segments as tseg
+from torch_threads import one_torch_thread  # noqa: F401
 
 G = 43.0211349
 

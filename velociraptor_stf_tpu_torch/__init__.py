@@ -9,10 +9,14 @@ spherical overdensities (``models.pipeline.find_structures``), the
 command line (``python -m velociraptor_stf_tpu_torch.cli``) and the
 library API (``api``).  Hydro snapshots take the pair pipeline
 (``ops.fof``), the baryon association with its combined unbind
-(``models.baryons``) and the per-type properties.  It keeps its
+(``models.baryons``) and the per-type properties; the substructure
+recursion (``models.substructure``: velocity density, background grid and
+outliers, stream FOF, merger cores, level-wide unbind) and single-halo
+mode run on the same path.  It keeps its
 own copies of the host modules it needs (options and config parser,
 cosmology, counters and timer in ``utils``; snapshot readers, catalog
-writers and mocks in ``io``; float64 oracles in ``validation``) and imports
+writers, mocks and the density cache in ``io``; float64 oracles in
+``validation``) and imports
 neither jax nor anything of the JAX package.
 
 Importing the package loads nothing heavy: the CUDA library is compiled on

@@ -12,8 +12,8 @@ A simulation running on the same GPU hands its tensors over as they are --
 no host round trip -- which replaces the reference's zero-copy
 ``swift_vel_part`` conversion.  The search runs on the one device named by
 ``device`` (default ``"cuda"``, which needs a card: nothing falls back to
-the CPU); a multi-device mesh is not ported.  Modes the pipeline has not
-got yet raise its ``NotImplementedError``.
+the CPU); a multi-device mesh is not ported and raises the pipeline's
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -185,3 +185,52 @@ def make_cosmo_mock(npart_total: int, fhalo: float = 0.4, nhalos: int = 256,
     mass = np.full(npart, 1.0, np.float32)
     perm = rng.permutation(npart)
     return pos[perm], vel[perm], mass[perm]
+
+
+# G in (km/s)^2 kpc / (1e10 Msun), the planted-subhalo mocks' unit system
+G_KMS = 43.0211349
+
+
+def host_with_subhalo(seed: int = 0, nhost: int = 6000, nsub: int = 600,
+                      rsub: float = 0.06, sub_offset: float = 0.45,
+                      sub_sigma: float = 6.0):
+    """A host halo (unit sphere, denser centre, virial Maxwellian
+    velocities, total mass 100) with a compact cold subhalo offset along
+    x and moving in y: (pos, vel, mass, member) float32, ``member`` True
+    on the subhalo (the planted mock of tests/test_substructure.py)."""
+    rng = np.random.default_rng(seed)
+    mtot = 100.0
+    r = rng.uniform(size=nhost) ** (1 / 2)
+    d = rng.normal(size=(nhost, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    hpos = r[:, None] * d
+    sigma = np.sqrt(G_KMS * mtot / 6.0)
+    hvel = rng.normal(0, sigma, (nhost, 3))
+    spos = sub_offset * np.array([1.0, 0, 0]) + \
+        rsub * rng.normal(size=(nsub, 3)) / np.sqrt(3)
+    svel = np.array([0.0, 1.6 * sigma, 0.0]) + \
+        rng.normal(0, sub_sigma, (nsub, 3))
+    pos = np.concatenate([hpos, spos]).astype(np.float32)
+    vel = np.concatenate([hvel, svel]).astype(np.float32)
+    mass = np.full(len(pos), mtot / len(pos), np.float32)
+    member = np.concatenate([np.zeros(nhost, bool), np.ones(nsub, bool)])
+    return pos, vel, mass, member
+
+
+def planted_subhalos(nhosts: int = 3, seed: int = 10, nhost: int = 3000,
+                     nsub: int = 400, spacing: float = 4.0,
+                     offset: float = 0.0):
+    """``nhosts`` hosts of ``host_with_subhalo`` (seeds seed, seed+1, ...)
+    ``spacing`` apart along x from x = ``offset``: (pos, vel, mass, host)
+    with ``host`` the 1-based host of each particle (the three-host mock
+    of tests/test_substructure.py:400-421 at the defaults)."""
+    parts = [host_with_subhalo(seed=seed + k, nhost=nhost, nsub=nsub)
+             for k in range(nhosts)]
+    shift = [np.array([offset + spacing * k, offset, offset], np.float32)
+             for k in range(nhosts)]
+    pos = np.concatenate([p[0] + s for p, s in zip(parts, shift)])
+    vel = np.concatenate([p[1] for p in parts])
+    mass = np.concatenate([p[2] for p in parts])
+    host = np.concatenate([np.full(len(p[0]), k + 1, np.int32)
+                           for k, p in enumerate(parts)])
+    return pos, vel, mass, host

@@ -6,17 +6,20 @@ and, with ``iBoundHalos >= 1``, the field-halo unbind, timed as "fof" and
 "unbind" as the reference does.  ``find_structures`` runs them, then the
 iKeepFOF hierarchy, the property stage on the tagged particles
 ("properties") and the spherical overdensities of ``Inclusive_halo_masses``
-("so"), and returns a catalog in numpy as the reference's does.  Given
-particle types, both run the baryon association and the combined unbind
-after the dark-matter search ("baryons"), and ``find_structures`` adds the
-per-type properties.  Substructure, single-halo mode and a device mesh are
-not ported yet and raise ``NotImplementedError``.
+("so"), and returns a catalog in numpy as the reference's does.  With
+``iSubSearch`` both run the substructure recursion after the field unbind
+("substructure", ``models/substructure.py``), and with ``iBoundHalos = 2``
+the field halos are unbound again once their substructures are carved out.
+Given particle types, both run the baryon association and the combined
+unbind after the dark-matter search ("baryons"), and ``find_structures``
+adds the per-type properties.  ``iSingleHalo`` takes the whole input as
+group 1.  A device mesh is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Union
 
@@ -24,10 +27,11 @@ import numpy as np
 import torch
 
 from . import baryons as baryons_mod
-from . import halos, properties as props_mod, unbind
+from . import halos, haloprops, properties as props_mod, substructure, unbind
 from ..ops import so as so_ops
 from ..utils import config as C
 from ..utils import units
+from ..utils.timing import device_clock
 
 
 @dataclass
@@ -45,15 +49,10 @@ class SearchResult:
     # halo ids before the unbind, kept for Inclusive_halo_masses 1 and 2
     pfof_fof: Optional[torch.Tensor] = None
     ngroups_fof: int = 0
-
-
-def _clock(device: torch.device):
-    """A stage clock: host seconds, read after the card has finished."""
-    def clock() -> float:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
-    return clock
+    # substructure hierarchy per group id (numpy; None without iSubSearch)
+    hostid: Optional[np.ndarray] = None
+    parent: Optional[np.ndarray] = None
+    level: Optional[np.ndarray] = None
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -96,13 +95,8 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     then in the order of the dark matter subset, as in the reference."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
-    if opt.iSingleHalo:
-        raise NotImplementedError("iSingleHalo is not ported yet")
-    if opt.iSubSearch:
-        raise NotImplementedError("substructure search (iSubSearch) is not "
-                                  "ported yet")
     device = torch.device(device)
-    clock = _clock(device)
+    clock = device_clock(device)
     timings: Dict[str, float] = {}
     units.calc_cosmo_params(opt, opt.a)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
@@ -118,15 +112,26 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         (pos[dmi], vel[dmi], mass[dmi])
 
     t0 = clock()
-    fres = halos.search_full_set(opt, spos, svel, smass, boxsize=boxsize)
-    pfof, ng = fres.pfof, fres.ngroups
-    timings["fof"] = clock() - t0
-    pfof3d = fres.pfof3d
-
-    # iKeepFOF: the 3DFOF envelopes are split off (never unbound) and
-    # re-attached as ids 1..keepfof afterwards
-    keepfof, parent3d = fres.num3dfof, fres.parent3d
-    del fres
+    if opt.iSingleHalo:
+        # the input is one halo: no field search, the whole set is group 1
+        # (reference main.cxx:285), its linking lengths optionally scaled
+        # from its bulk properties (ScaleLinkingLengths, main.cxx:333)
+        if opt.iScaleLengths:
+            haloprops.scale_linking_lengths(
+                opt, spos.cpu().numpy(), svel.cpu().numpy(),
+                smass.cpu().numpy())
+        pfof = torch.ones(spos.shape[0], dtype=torch.int64, device=device)
+        ng, pfof3d, keepfof, parent3d = 1, None, 0, None
+        timings["fof"] = clock() - t0
+    else:
+        fres = halos.search_full_set(opt, spos, svel, smass, boxsize=boxsize)
+        pfof, ng = fres.pfof, fres.ngroups
+        timings["fof"] = clock() - t0
+        pfof3d = fres.pfof3d
+        # iKeepFOF: the 3DFOF envelopes are split off (never unbound) and
+        # re-attached as ids 1..keepfof afterwards
+        keepfof, parent3d = fres.num3dfof, fres.parent3d
+        del fres
     if keepfof > 0 and dmi is not None:
         # the reference's envelope re-attachment mixes DM-subset and
         # full-set arrays and fails on this combination
@@ -151,6 +156,21 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         gid_map = ures.gid_map
         timings["unbind"] = clock() - t0
 
+    hostid = parent = level = None
+    if opt.iSubSearch and ng > 0:
+        t0 = clock()
+        pfof, ng, hostid, parent, level = substructure.search_sub_sub(
+            opt, spos, svel, smass, pfof, ng, boxsize=boxsize,
+            timings=timings)
+        timings["substructure"] = clock() - t0
+        if opt.iBoundHalos > 1 and opt.uinfo.unbindflag and ng > 0 and \
+                dmi is None:
+            t0 = clock()
+            pfof, ng, W, hostid, parent, level = _reunbind_halos(
+                opt, spos, svel, smass, pfof, ng, W, hostid, parent, level,
+                boxsize)
+            timings["unbind"] = timings.get("unbind", 0.0) + clock() - t0
+
     if dmi is not None:
         t0 = clock()
         grp_b = baryons_mod.search_baryons(opt, spos, svel, pfof, pos[bi],
@@ -172,8 +192,14 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
             ures = unbind.check_unbound_groups(
                 pos, vel, mass, pfof, ng, opt.uinfo, opt.G, boxsize=boxsize,
                 min_size=opt.MinSize)
-            pfof, ng, W = ures.pfof, ures.ngroups, ures.W
-            # old FOF id -> final id through both renumberings
+            pfof, W = ures.pfof, ures.W
+            if parent is not None:
+                hostid, parent, level = _remap_hierarchy(
+                    ures.gid_map.cpu().numpy(), ures.ngroups, hostid,
+                    parent, level)
+            ng = ures.ngroups
+            # old FOF id -> final id through both renumberings (field
+            # halo ids pass the substructure splice unchanged)
             gm = ures.gid_map
             gid_map = gm if gid_map is None else \
                 gm[torch.clamp(gid_map, 0, gm.shape[0] - 1)]
@@ -185,7 +211,46 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     return SearchResult(pfof=pfof, ngroups=ng, W=W, pfof3d=pfof3d,
                         timings=timings, num3dfof=keepfof,
                         parent3d=parent3d, gid_map=gid_map,
-                        pfof_fof=pfof_fof, ngroups_fof=ng_fof)
+                        pfof_fof=pfof_fof, ngroups_fof=ng_fof,
+                        hostid=hostid, parent=parent, level=level)
+
+
+def _reunbind_halos(opt: C.Options, pos, vel, mass, pfof, ng: int, W,
+                    hostid, parent, level, boxsize):
+    """``Bound_halos = 2``: the field halos, with their substructures
+    carved out, are unbound again (reference search.cxx:2841); surviving
+    halos become 1..ng_h by size, the substructures follow in their
+    order, and the hierarchy and potentials follow them."""
+    dev = pfof.device
+    is_halo = parent[:ng + 1] == 0
+    halo_of_p = (pfof > 0) & torch.from_numpy(is_halo).to(dev)[pfof]
+    minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
+    ures = unbind.check_unbound_groups(
+        pos, vel, mass, torch.where(halo_of_p, pfof, 0), ng, opt.uinfo,
+        opt.G, boxsize=boxsize, min_size=minsize)
+    gm_h = ures.gid_map[:ng + 1]
+    gm_np = gm_h.cpu().numpy()
+    remap = np.zeros(ng + 1, np.int64)
+    remap[is_halo] = gm_np[is_halo]
+    sub_ids = np.nonzero(~is_halo[1:])[0] + 1
+    remap[sub_ids] = ures.ngroups + 1 + np.arange(len(sub_ids))
+    pfof_new = torch.where(halo_of_p, gm_h[pfof] * ures.bound,
+                           torch.from_numpy(remap).to(dev)[pfof])
+    ng_new = ures.ngroups + len(sub_ids)
+    new_parent = np.zeros(ng_new + 1, np.int64)
+    new_host = np.full(ng_new + 1, -1, np.int64)
+    new_level = np.zeros(ng_new + 1, np.int32)
+    olds = np.arange(1, ng + 1)
+    newg = remap[olds]
+    keep = newg > 0
+    olds, newg = olds[keep], newg[keep]
+    new_parent[newg] = _map_gids(remap, parent[olds], 0)
+    hv = _map_gids(remap, hostid[olds], 0)
+    new_host[newg] = np.where(hv > 0, hv, -1)
+    new_level[newg] = level[olds]
+    if W is not None:
+        W = torch.where(halo_of_p, ures.W, W)
+    return pfof_new, ng_new, W, new_host, new_parent, new_level
 
 
 @dataclass
@@ -235,10 +300,13 @@ def _remap_hierarchy(gid_map: np.ndarray, ng_new: int, hostid, parent,
 
 
 def _keepfof_hierarchy(keepfof: int, ng: int, parent3d: np.ndarray,
-                       gid_map: Optional[np.ndarray]):
+                       gid_map: Optional[np.ndarray], sub_host=None,
+                       sub_parent=None, sub_level=None):
     """(hostid, parent, level, stype) of a catalog of ``keepfof``
-    envelopes followed by ``ng`` halos (reference pipeline.py:316-353):
-    each surviving halo's parent is its envelope, at level 1."""
+    envelopes followed by ``ng`` halos and substructures (reference
+    pipeline.py:316-353): each surviving field halo's parent is its
+    envelope, at level 1; a substructure keeps its parent and host,
+    shifted past the envelopes, one level deeper."""
     gm = gid_map if gid_map is not None else np.arange(ng + 1)
     ng_final = keepfof + ng
     parent = np.zeros(ng_final + 1, np.int64)
@@ -252,6 +320,13 @@ def _keepfof_hierarchy(keepfof: int, ng: int, parent3d: np.ndarray,
     parent[dest] = env
     hostid[dest] = np.where(env > 0, env, -1)
     level[dest] = 1
+    if sub_parent is not None:
+        g = np.arange(1, len(sub_parent))
+        hasp = g[sub_parent[g] > 0]
+        parent[keepfof + hasp] = keepfof + sub_parent[hasp]
+        level[keepfof + hasp] = sub_level[hasp] + 1
+        hash_ = g[sub_host[g] > 0]
+        hostid[keepfof + hash_] = keepfof + sub_host[hash_]
     stype = np.full(ng_final + 1, C.HALOSTYPE, np.int32)
     stype[1:keepfof + 1] = C.FOF3DTYPE
     stype[keepfof + 1:] = C.HALOSTYPE + 10 * np.maximum(
@@ -280,7 +355,7 @@ def find_structures(opt: C.Options, pos, vel, mass,
     Returns numpy arrays; with no group found, ``ngroups`` 0, ``pfof`` all
     zero and one-row property arrays."""
     device = torch.device(device)
-    clock = _clock(device)
+    clock = device_clock(device)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
     ptype = _as_ptype(ptype, device)
     sres = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize,
@@ -289,11 +364,13 @@ def find_structures(opt: C.Options, pos, vel, mass,
     pfof, ng, W = sres.pfof, sres.ngroups, sres.W
     gid_map = None if sres.gid_map is None else sres.gid_map.cpu().numpy()
 
-    hostid = parent = level = stype = None
+    hostid, parent, level, stype = sres.hostid, sres.parent, sres.level, \
+        None
     keepfof = sres.num3dfof
     if keepfof > 0:
         hostid, parent, level, stype = _keepfof_hierarchy(
-            keepfof, ng - keepfof, sres.parent3d.cpu().numpy(), gid_map)
+            keepfof, ng - keepfof, sres.parent3d.cpu().numpy(), gid_map,
+            hostid, parent, level)
 
     # the property stage runs on the tagged particles, group by group;
     # with none tagged, on one untagged particle: row 0 alone

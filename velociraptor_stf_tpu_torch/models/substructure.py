@@ -1,0 +1,1174 @@
+"""Substructure search: phase-space outliers, stream FOF, merger cores and
+the recursion over levels (port of velociraptor_stf_tpu/models/
+substructure.py: the pair criteria, ``subset_predicate``,
+``significance_filter``, ``search_subset``, ``merge_linked_groups``,
+``attach_expand``, the three host merges, the padded structure context,
+``structure_outliers``, ``search_sub_sub``, ``Pred6DCore``,
+``halo_core_search`` and ``_phase_tensor_growth``).
+
+* ``search_subset`` (reference SearchSubset, search.cxx:910-1816): a pair
+  links when both particles are outliers (ell >= threshold), lie within
+  the substructure linking length and move alike (speed ratio within
+  Vratio, velocity angle below thetaopen); with ``Iterative_searchflag``
+  a tightened first pass, two attach expansions and the fmerge link merge
+  (MergeGroups).  One cell-sorted edge table at the widest reach serves
+  all four passes.  ``significance_filter`` (CheckSignificance, :2947)
+  sheds low-ell members until a group is significant.
+* ``search_sub_sub`` (SearchSubSub, :2480-2946): the velocity density once
+  over the particles of structures of at least MINSUBSIZE members, then per
+  level: each structure's padded context (``_prep_class``), its background
+  grid and outlier values, the subset search, the merger-core search
+  (HaloCoreGrowth, :1817), one unbind over every candidate of the level,
+  and the splice of the new ids with their parents.
+
+The padding is part of the result.  A structure of nsub members is padded
+to npad = next_pow2(nsub) >= 1024 rows, the extra rows zero-mass points on
+a lattice outside the structure, exactly as the reference pads it: the
+background grid's median splits and the outlier histograms' bin counts
+see those rows.  The edge searches do not (padded rows are never
+outliers, never eligible, never tagged), so they, the core search and the
+unbind run on the structure's own rows; the padded bounds still set the
+cell grid, as they do in the reference.  Structures of one pad size share
+one batched context build and one outlier pass; the reference's vmapped
+subset batches are not carried over (the per-structure search gives the
+same ids).  The reference's environment switches and device mesh are not
+ported: a mesh raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..io import cache as cache_io
+from ..ops import fof, segments as seg
+from ..utils import config as C
+from ..utils import telemetry
+from ..utils.timing import device_clock
+from . import bgfield, localfield, unbind as unbind_mod
+
+
+class _Laps:
+    """Per-phase time of the recursion (density, prep, outliers, subset,
+    cores, unbind, splice), read with the synchronising stage clock and
+    summed over levels into ``timings["subsub_<phase>"]``."""
+
+    def __init__(self, device: torch.device, timings: Dict[str, float]):
+        self.clock = device_clock(device)
+        self.timings = timings
+        self.t0 = self.clock()
+
+    def lap(self, phase: str) -> None:
+        t = self.clock()
+        key = f"subsub_{phase}"
+        self.timings[key] = self.timings.get(key, 0.0) + (t - self.t0)
+        self.t0 = t
+
+
+# ---------------------------------------------------------------------------
+# Pair criteria (reference fofalgo.cxx)
+# ---------------------------------------------------------------------------
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + \
+        a[..., 2] * b[..., 2]
+
+
+def _stream_terms(own, nbr):
+    """(cos of the velocity angle, speed ratio) of each pair."""
+    v_own, v_nbr = own["vel"], nbr["vel"]
+    v1 = torch.sqrt(seg.sq3(v_own))
+    v2 = torch.sqrt(seg.sq3(v_nbr))
+    vdot = _dot3(v_own, v_nbr) / torch.clamp_min(v1 * v2, 1e-30)
+    return vdot, v1 / torch.clamp_min(v2, 1e-30)
+
+
+def _ratio_ok(ratio, vratio: float):
+    return (ratio < vratio) & (ratio > 1.0 / vratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPred:
+    """FOFStreamwithprob (fofalgo.cxx:21-34): both outliers, within the
+    linking length, aligned and of similar speed."""
+
+    symmetric = True
+
+    b2: float
+    vratio: float
+    costheta: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        vdot, ratio = _stream_terms(own, nbr)
+        ok = (d2 < self.b2) & (vdot > self.costheta) & \
+            _ratio_ok(ratio, self.vratio)
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredAttach:
+    """FOFStreamwithprobIterative (fofalgo.cxx:36-50): one of the pair
+    (the tagged side) needs to be an outlier; used to attach."""
+
+    b2: float
+    vratio: float
+    costheta: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        vdot, ratio = _stream_terms(own, nbr)
+        ok = (d2 < self.b2) & (vdot > self.costheta) & \
+            _ratio_ok(ratio, self.vratio)
+        return ok & ((own["ell"] >= self.ellthr) |
+                     (nbr["ell"] >= self.ellthr))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredNoProb:
+    """FOFStream (fofalgo.cxx:7-19): the stream criterion without the
+    outlier gate."""
+
+    symmetric = True
+
+    b2: float
+    vratio: float
+    costheta: float
+
+    def __call__(self, d2, own, nbr):
+        vdot, ratio = _stream_terms(own, nbr)
+        return (d2 < self.b2) & (vdot > self.costheta) & \
+            _ratio_ok(ratio, self.vratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredNoDist:
+    """FOFStreamwithprobNNNODIST (fofalgo.cxx:68-81): no linking length;
+    any pair of the candidate stencil links on the velocity and outlier
+    gates."""
+
+    symmetric = True
+
+    vratio: float
+    costheta: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        vdot, ratio = _stream_terms(own, nbr)
+        ok = (vdot > self.costheta) & _ratio_ok(ratio, self.vratio)
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredLX:
+    """FOFStreamwithprobLX (fofalgo.cxx:83-101): per-axis linking lengths
+    shrunk along each particle's velocity; the pair links if either
+    particle's scaled distance is within 1."""
+
+    symmetric = True
+
+    b2: float
+    vratio: float
+    costheta: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        v_own, v_nbr = own["vel"], nbr["vel"]
+        dx = own["pos"] - nbr["pos"]
+        v1sq = torch.clamp_min(seg.sq3(v_own), 1e-30)
+        v2sq = torch.clamp_min(seg.sq3(v_nbr), 1e-30)
+
+        def scaled(v, vsq):
+            f = 0.25 * (1.0 + v * v / vsq[..., None]) ** 2
+            t = dx * dx / (self.b2 * f)
+            return t[..., 0] + t[..., 1] + t[..., 2]
+
+        total = torch.minimum(scaled(v_own, v1sq), scaled(v_nbr, v2sq))
+        v1, v2 = torch.sqrt(v1sq), torch.sqrt(v2sq)
+        vdot = _dot3(v_own, v_nbr) / torch.clamp_min(v1 * v2, 1e-30)
+        ok = (total <= 1.0) & (vdot > self.costheta) & \
+            _ratio_ok(v1 / v2, self.vratio)
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredScaleEll:
+    """FOFStreamwithprobscaleell (fofalgo.cxx:120-137): the linking
+    length scaled by (lighter mass / reference mass)^(2/3)."""
+
+    symmetric = True
+
+    b2: float
+    vratio: float
+    costheta: float
+    ellthr: float
+    mref: float
+
+    def __call__(self, d2, own, nbr):
+        mmin = torch.minimum(own["mass"], nbr["mass"])
+        ellscale = self.b2 * torch.pow(
+            torch.clamp_min(mmin / self.mref, 1e-30), 2.0 / 3.0)
+        vdot, ratio = _stream_terms(own, nbr)
+        ok = (d2 < ellscale) & (vdot > self.costheta) & \
+            _ratio_ok(ratio, self.vratio)
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pred6DOutlier:
+    """FOF6dbgup (fofalgo.cxx:166-174): the 6D metric, both outliers
+    (FOF6DSUBSET)."""
+
+    symmetric = True
+
+    b2: float
+    v2: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        dv2 = seg.sq3(own["vel"] - nbr["vel"])
+        ok = d2 / self.b2 + dv2 / self.v2 < 1.0
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPredScaleEllB:
+    """StreamPredScaleEll with the reference mass a per-particle field
+    ``scal`` (the reference's batched form)."""
+
+    symmetric = True
+
+    b2: float
+    vratio: float
+    costheta: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        mmin = torch.minimum(own["mass"], nbr["mass"])
+        mref = torch.clamp_min(own["scal"], 1e-30)
+        ellscale = self.b2 * torch.pow(
+            torch.clamp_min(mmin / mref, 1e-30), 2.0 / 3.0)
+        vdot, ratio = _stream_terms(own, nbr)
+        ok = (d2 < ellscale) & (vdot > self.costheta) & \
+            _ratio_ok(ratio, self.vratio)
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pred6DOutlierB:
+    """Pred6DOutlier with the velocity scale a per-particle field
+    ``scal`` (the reference's batched form)."""
+
+    symmetric = True
+
+    b2: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        dv2 = seg.sq3(own["vel"] - nbr["vel"])
+        ok = d2 / self.b2 + dv2 / torch.clamp_min(own["scal"], 1e-30) < 1.0
+        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pred6DBackground:
+    """FOF6dbg (fofalgo.cxx:156-164): the 6D metric between particles
+    below the outlier threshold."""
+
+    symmetric = True
+
+    b2: float
+    v2: float
+    ellthr: float
+
+    def __call__(self, d2, own, nbr):
+        dv2 = seg.sq3(own["vel"] - nbr["vel"])
+        ok = d2 / self.b2 + dv2 / self.v2 < 1.0
+        return ok & (own["ell"] < self.ellthr) & (nbr["ell"] < self.ellthr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pred6DCore:
+    """FOF6d between eligible (untagged) particles (reference FOF6d with
+    the FOFcheckbg gate, search.cxx:1596-1600)."""
+
+    b2: float
+    v2: float
+
+    def __call__(self, d2, own, nbr):
+        dv2 = seg.sq3(own["vel"] - nbr["vel"])
+        ok = d2 / self.b2 + dv2 / self.v2 <= 1.0
+        return ok & (own["elig"] > 0) & (nbr["elig"] > 0)
+
+
+def subset_predicate(opt: C.Options, ellx2: float, vratio: float,
+                     costheta: float, ellthr: float, mref: float = 1.0,
+                     sigmav2: float = 1.0):
+    """FoF_search_type -> pair criterion (reference search.cxx:910-1010);
+    the NN variants map to the same criteria.  ``sigmav2`` scales the 6D
+    metric of FOF6DSUBSET."""
+    ft = opt.foftype
+    if ft in (C.FOFSTPROB, C.FOFSTPROBNN, C.FOFSTNOSUBSET):
+        return StreamPred(ellx2, vratio, costheta, ellthr)
+    if ft in (C.FOFSTPROBLX, C.FOFSTPROBNNLX):
+        return StreamPredLX(ellx2, vratio, costheta, ellthr)
+    if ft == C.FOFSTPROBNNNODIST:
+        return StreamPredNoDist(vratio, costheta, ellthr)
+    if ft in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
+        return StreamPredScaleEll(ellx2, vratio, costheta, ellthr, mref)
+    if ft == C.FOF6DSUBSET:
+        return Pred6DOutlier(ellx2, sigmav2 * opt.ellvel ** 2, ellthr)
+    return StreamPred(ellx2, vratio, costheta, ellthr)
+
+
+# ---------------------------------------------------------------------------
+# Significance, the subset search, link merging, attachment
+# ---------------------------------------------------------------------------
+
+def significance_filter(ell: torch.Tensor, pfof: torch.Tensor,
+                        num_groups: int, ellthreshold: float,
+                        siglevel: float, min_size: int) -> torch.Tensor:
+    """Reference CheckSignificance (search.cxx:2947): each group keeps its
+    largest top-ell prefix of k members whose beta = (mean ell /
+    E[ell | ell > thr] - 1) sqrt(k) >= siglevel; below ``min_size`` it
+    dissolves.  The per-group running sums are float64 (the reference
+    takes one float32 prefix sum over all rows)."""
+    thr = ellthreshold
+    ellaveexp = math.sqrt(2.0 / math.pi) * math.exp(-0.5 * thr * thr) / \
+        max(1.0 - math.erf(thr / math.sqrt(2.0)), 1e-300)
+    order = seg.lexsort2(-ell, pfof)
+    g_s = pfof[order]
+    e_o = ell[order]
+    e_s = torch.where((g_s > 0) & torch.isfinite(e_o), e_o, 0.0)
+    offsets = seg.group_offsets(g_s, num_groups)
+    rank = seg.segment_rank(g_s, offsets)
+    cume = seg.segment_cumsum(e_s, g_s, offsets)
+    k = (rank + 1).to(ell.dtype)
+    beta = (cume / k / ellaveexp - 1.0) * torch.sqrt(k)
+    okk = (beta >= siglevel) & (g_s > 0)
+    kstar = seg.segment_max(torch.where(okk, rank + 1, 0), g_s,
+                            num_groups + 1)
+    kstar = torch.where(kstar >= min_size, kstar, 0)
+    keep = torch.zeros_like(pfof, dtype=torch.bool)
+    keep[order] = (rank < kstar[g_s]) & (g_s > 0)
+    return torch.where(keep, pfof, 0)
+
+
+def _renumber_ids(pfof: torch.Tensor, ngpad: int, min_size: int
+                  ) -> Tuple[torch.Tensor, int]:
+    """Group ids 1..ngpad -> 1..ng by decreasing size, equal sizes by the
+    lower old id; groups under ``min_size`` go to 0."""
+    sizes = seg.group_sizes(pfof, ngpad)
+    gids = torch.arange(ngpad + 1, device=pfof.device)
+    eligible = (sizes >= min_size) & (gids > 0)
+    order = torch.argsort(-torch.where(eligible, sizes, 0), stable=True)
+    ngnew = int(eligible.sum())
+    gid_map = torch.zeros(ngpad + 1, dtype=torch.int64, device=pfof.device)
+    gid_map[order] = torch.where(gids < ngnew, gids + 1, 0)
+    return gid_map[torch.clamp(pfof, 0, ngpad)], ngnew
+
+
+def _scatter_back(values_s: torch.Tensor, order: torch.Tensor
+                  ) -> torch.Tensor:
+    out = torch.empty_like(values_s)
+    out[order] = values_s
+    return out
+
+
+def _padded_mean_var(opt: C.Options, mass, vel, npad: Optional[int]
+                     ) -> Tuple[float, float]:
+    """The reference's per-structure normalisations, over its padded rows
+    (zero mass and velocity), in float32 numpy as it computes them: the
+    mean mass for the ScaleEll criteria, the mean per-axis velocity
+    variance for FOF6DSUBSET."""
+    mref = sigmav2 = 1.0
+    extra = 0 if npad is None else max(npad - mass.shape[0], 0)
+    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
+        m = np.concatenate([mass.cpu().numpy(), np.zeros(extra, np.float32)])
+        mv = float(np.mean(m))
+        mref = mv if np.isfinite(mv) and mv > 0 else 1.0
+    if opt.foftype == C.FOF6DSUBSET:
+        v = np.concatenate([vel.cpu().numpy(),
+                            np.zeros((extra, 3), np.float32)])
+        sv = float(np.mean(np.var(v, axis=0))) if len(v) else float("nan")
+        sigmav2 = sv if np.isfinite(sv) and sv > 0 else 1.0
+    return mref, sigmav2
+
+
+def search_subset(opt: C.Options, pos: torch.Tensor, vel: torch.Tensor,
+                  mass: torch.Tensor, ell: torch.Tensor,
+                  bounds=None, npad: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, int]:
+    """Substructure candidates of one (re-centred) structure: (int64
+    pfof, ngroups), ids 1..ng by size (reference SearchSubset).
+    ``bounds``: host (lo, hi) of the cell grid (the reference passes its
+    padded structure's); ``npad``: the reference's padded row count,
+    which its mean mass and velocity variance include."""
+    n = pos.shape[0]
+    ellx2 = (opt.ellxscale * opt.ellphys) ** 2
+    costh = math.cos(opt.thetaopen * math.pi)
+    costh_it = math.cos(opt.thetaopen * math.pi * opt.thetafac)
+    needs_mass = opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN)
+    needs_pos = opt.foftype in (C.FOFSTPROBLX, C.FOFSTPROBNNLX)
+    mref, sigmav2 = _padded_mean_var(opt, mass, vel, npad)
+    if opt.iiterflag:
+        pred0 = subset_predicate(opt, ellx2, opt.Vratio * opt.vfac, costh_it,
+                                 opt.ellthreshold * opt.ellfac, mref=mref,
+                                 sigmav2=sigmav2)
+        minsize0 = max(2, int(opt.MinSize * opt.nminfac))
+    else:
+        pred0 = subset_predicate(opt, ellx2, opt.Vratio, costh,
+                                 opt.ellthreshold, mref=mref,
+                                 sigmav2=sigmav2)
+        minsize0 = opt.MinSize
+    b = math.sqrt(ellx2)
+    fields = {"ell": ell, "vel": vel}
+    if needs_mass:
+        fields["mass"] = mass
+    if needs_pos:
+        fields["pos"] = pos
+
+    # one edge table at the widest reach serves the first search, both
+    # attach passes and the link merge: every criterion but NNNODIST cuts
+    # within it (the reference rebuilds its tree per pass)
+    share = bool(opt.iiterflag) and opt.foftype != C.FOFSTPROBNNNODIST
+    edges = None
+    if share:
+        b_build = b * max(1.0, opt.ellxfac)
+        edges = fof.build_edges(pos, b_build, fields=fields,
+                                predicate=fof.Pred3D(b_build * b_build),
+                                bounds=bounds)
+        mask = _refine(edges, pred0)
+        labels = fof.fof_labels_from_edges(edges.erow[mask],
+                                           edges.ecol[mask], n,
+                                           undirected=edges.undirected)
+        pfof_s, ng = fof.renumber_by_size(labels, minsize0,
+                                          orig_index=edges.order)
+        pfof = _scatter_back(pfof_s.long(), edges.order)
+    else:
+        pfof, ng = fof.fof3d(pos, b, min_size=minsize0, vel=vel,
+                             extra_fields={k: v for k, v in fields.items()
+                                           if k != "vel"},
+                             predicate=pred0, bounds=bounds)
+        pfof = pfof.long()
+    if ng == 0:
+        return pfof, 0
+
+    if opt.iiterflag:
+        # expansion: attach untagged particles under the base thresholds
+        pred_att = StreamPredAttach(ellx2, opt.Vratio * opt.vfac, costh_it,
+                                    opt.ellthreshold)
+        pfof = _attach_shared(edges, pred_att, pfof) if share else \
+            attach_expand(pos, vel, ell, pfof, b, pred_att)
+        sizes_old = seg.group_sizes(pfof, ng).cpu().numpy()
+        pfof, ng = merge_linked_groups(pos, vel, ell, pfof, ng, opt,
+                                       sizes_old=sizes_old, edges=edges)
+        # relaxed second expansion at ellxfac times the linking length
+        ellx2b = ellx2 * opt.ellxfac ** 2
+        pred_att2 = StreamPredAttach(ellx2b, opt.Vratio * opt.vfac, costh_it,
+                                     opt.ellthreshold * opt.ellfac)
+        pfof = _attach_shared(edges, pred_att2, pfof) if share else \
+            attach_expand(pos, vel, ell, pfof, math.sqrt(ellx2b), pred_att2)
+
+    ngpad = 1
+    while ngpad < ng + 1:
+        ngpad *= 2
+    pfof = significance_filter(ell, pfof, ngpad, opt.ellthreshold,
+                               opt.siglevel, opt.MinSize)
+    return _renumber_ids(pfof, ngpad, opt.MinSize)
+
+
+def _refine(edges: fof.FlatEdges, pred, flip: bool = False) -> torch.Tensor:
+    """``pred`` along the edge table (``flip``: with the columns as the
+    pair's own side)."""
+    a, b = (edges.ecol, edges.erow) if flip else (edges.erow, edges.ecol)
+    return fof.refine_edge_mask(edges.pos_s, edges.fields_s, a, b,
+                                edges.boxsize, pred)
+
+
+def _attach_shared(edges: fof.FlatEdges, pred, pfof: torch.Tensor,
+                   nrounds: int = 16) -> torch.Tensor:
+    """Attach rounds along the shared table: the (asymmetric) attach
+    criterion on both orientations of an undirected table."""
+    mf = _refine(edges, pred)
+    er, ec = edges.erow[mf], edges.ecol[mf]
+    if edges.undirected:
+        mb = _refine(edges, pred, flip=True)
+        er = torch.cat([er, edges.ecol[mb]])
+        ec = torch.cat([ec, edges.erow[mb]])
+    labels = fof.attach_rounds(pfof[edges.order], er, ec, nrounds)
+    return _scatter_back(labels, edges.order)
+
+
+def attach_expand(pos, vel, ell, pfof: torch.Tensor, linking_length: float,
+                  pred, max_rounds: int = 16) -> torch.Tensor:
+    """Untagged particles adopt the lowest group id among their linked
+    tagged neighbours, to exhaustion (one edge build, then rounds)."""
+    edges = fof.build_edges(pos, linking_length,
+                            fields={"vel": vel, "ell": ell}, predicate=pred)
+    labels = fof.attach_rounds(pfof.long()[edges.order], edges.erow,
+                               edges.ecol, max_rounds)
+    return _scatter_back(labels, edges.order)
+
+
+def merge_linked_groups(pos, vel, ell, pfof: torch.Tensor, ng: int,
+                        opt: C.Options,
+                        sizes_old: Optional[np.ndarray] = None,
+                        edges: Optional[fof.FlatEdges] = None
+                        ) -> Tuple[torch.Tensor, int]:
+    """Group j joins group i when their cross links under the relaxed
+    stream criterion outnumber fmerge x (j's size before expansion)
+    (reference MergeGroups, search.cxx:1200-1224, 3894).  Ids are not
+    renumbered.  ``edges``: a table spanning at least the linking length
+    to re-evaluate instead of building one."""
+    pfof = pfof.long()
+    if ng <= 1:
+        return pfof, ng
+    if sizes_old is None:
+        sizes_old = seg.group_sizes(pfof, ng).cpu().numpy()
+    ellx2 = (opt.ellxscale * opt.ellphys) ** 2
+    pred = StreamPred(ellx2, opt.Vratio * opt.vfac,
+                      math.cos(opt.thetaopen * math.pi * opt.thetafac),
+                      opt.ellthreshold * opt.ellfac)
+    if edges is not None:
+        m = _refine(edges, pred)
+        erow, ecol = edges.erow[m], edges.ecol[m]
+    else:
+        edges = fof.build_edges(pos, math.sqrt(ellx2),
+                                fields={"vel": vel, "ell": ell},
+                                predicate=pred)
+        erow, ecol = edges.erow, edges.ecol
+    gs = pfof[edges.order]
+    gi, gj = gs[erow], gs[ecol]
+    if edges.undirected:
+        gi, gj = torch.cat([gi, gj]), torch.cat([gj, gi])
+    pi, pj, counts = seg.pair_counts_sparse(gi, gj,
+                                            (gi > 0) & (gj > 0) & (gi != gj))
+    # the reference's (i, j) loop order: pairs arrive lexicographically
+    absorbed = np.zeros(ng + 1, bool)
+    target = np.arange(ng + 1)
+    merged = False
+    thresh = opt.fmerge * sizes_old
+    for i, j, c in zip(pi, pj, counts):
+        if absorbed[i] or absorbed[j] or c <= thresh[j]:
+            continue
+        absorbed[j] = True
+        target[target == j] = i
+        merged = True
+    if not merged:
+        return pfof, ng
+    return torch.from_numpy(target).to(pfof.device)[pfof], ng
+
+
+# ---------------------------------------------------------------------------
+# Host phase merges (reference MergeSubstructures*, search.cxx:2146-2480)
+# ---------------------------------------------------------------------------
+
+def _group_phase_stats(pos, vel, mass, pfof_np, ng: int):
+    """Per-group mass-weighted phase centres and scalar dispersions
+    (reference MergeSubstructures* preamble, search.cxx:2171-2235)."""
+    m = np.asarray(mass, np.float64)
+    w = np.where(pfof_np > 0, m, 0.0)
+    msum = np.zeros(ng + 1)
+    np.add.at(msum, pfof_np, w)
+    msum = np.maximum(msum, 1e-30)
+    mu_x = np.zeros((ng + 1, 3))
+    mu_v = np.zeros((ng + 1, 3))
+    np.add.at(mu_x, pfof_np, np.asarray(pos, np.float64) * w[:, None])
+    np.add.at(mu_v, pfof_np, np.asarray(vel, np.float64) * w[:, None])
+    mu_x /= msum[:, None]
+    mu_v /= msum[:, None]
+    sigX = np.zeros(ng + 1)
+    sigV = np.zeros(ng + 1)
+    np.add.at(sigX, pfof_np,
+              np.sum((pos - mu_x[pfof_np]) ** 2, axis=1) * w)
+    np.add.at(sigV, pfof_np,
+              np.sum((vel - mu_v[pfof_np]) ** 2, axis=1) * w)
+    sigX = np.maximum(sigX / msum, 1e-30)
+    sigV = np.maximum(sigV / msum, 1e-30)
+    return mu_x, mu_v, sigX, sigV
+
+
+def merge_substructures_cores_phase(pos, vel, mass, pfof, numsubs: int,
+                                    numcores: int, fdist: float
+                                    ) -> Tuple[np.ndarray, int]:
+    """Merge 6DFOF cores into phase-overlapping substructures.
+
+    Reference MergeSubstructuresCoresPhase (search.cxx:2146-2289): group ids
+    1..numsubs are substructures, numsubs+1..numsubs+numcores are cores; a
+    core merges into the phase-nearest substructure when the normalized
+    phase distance (dx^2/sigX_core + dv^2/sigV_core) < fdist^2.  Returns
+    (pfof, new_numcores) with surviving cores renumbered to stay contiguous
+    after the substructures.
+    """
+    pfof_np = np.asarray(pfof).copy()
+    ng = numsubs + numcores
+    if numsubs == 0 or numcores == 0 or fdist <= 0:
+        return pfof_np, numcores
+    mu_x, mu_v, sigX, sigV = _group_phase_stats(pos, vel, mass, pfof_np, ng)
+    f2 = fdist * fdist
+    newid = np.arange(ng + 1)
+    kept = []
+    for c in range(numsubs + 1, ng + 1):
+        dx2 = np.sum((mu_x[1:numsubs + 1] - mu_x[c]) ** 2, axis=1)
+        dv2 = np.sum((mu_v[1:numsubs + 1] - mu_v[c]) ** 2, axis=1)
+        d2 = dx2 / sigX[c] + dv2 / sigV[c]
+        j = int(np.argmin(d2))
+        if d2[j] < f2 and dx2[j] < sigX[c] * f2:
+            newid[c] = j + 1
+        else:
+            kept.append(c)
+    for rank, c in enumerate(kept):
+        newid[c] = numsubs + 1 + rank
+    return newid[pfof_np].astype(np.int32), len(kept)
+
+
+def merge_substructures_phase(pos, vel, mass, pfof, numsubs: int,
+                              numcores: int, fdist: float
+                              ) -> Tuple[np.ndarray, int, int]:
+    """Merge phase-overlapping substructures with each other.
+
+    Reference MergeSubstructuresPhase (search.cxx:2289-2480): substructure j
+    merges into i when their mutual normalized phase distances (each
+    normalized by its own dispersions) are both < fdist^2.  Cores (ids >
+    numsubs) are never absorbed into by substructures but may absorb.
+    Returns (pfof, numsubs, numcores) with ids compacted.
+    """
+    pfof_np = np.asarray(pfof).copy()
+    ng = numsubs + numcores
+    if ng <= 1 or fdist <= 0:
+        return pfof_np, numsubs, numcores
+    mu_x, mu_v, sigX, sigV = _group_phase_stats(pos, vel, mass, pfof_np, ng)
+    f2 = fdist * fdist
+    absorbed = np.zeros(ng + 1, bool)
+    target = np.arange(ng + 1)
+    isig_x, isig_v = 1.0 / sigX, 1.0 / sigV
+    for i in range(1, numsubs + 1):      # subs iterate; cores don't absorb
+        if absorbed[i]:
+            continue
+        dx2 = np.einsum("jd,jd->j", mu_x - mu_x[i], mu_x - mu_x[i])
+        dv2 = np.einsum("jd,jd->j", mu_v - mu_v[i], mu_v - mu_v[i])
+        d1 = dx2 * isig_x[i] + dv2 * isig_v[i]
+        d2 = dx2 * isig_x + dv2 * isig_v
+        ok = (d1 < f2) & (d2 < f2) & ~absorbed
+        ok[0] = ok[i] = False
+        if not ok.any():
+            continue
+        d = np.where(ok, 0.5 * (d1 + d2), np.inf)
+        best = int(np.argmin(d))
+        absorbed[best] = True
+        target[target == best] = i
+    if not absorbed.any():
+        return pfof_np, numsubs, numcores
+    # compact ids: surviving subs first, then surviving cores
+    surv = [g for g in range(1, ng + 1) if not absorbed[g]]
+    remap = np.zeros(ng + 1, np.int64)
+    nsub_new = 0
+    for rank, g in enumerate(surv):
+        remap[g] = rank + 1
+        if g <= numsubs:
+            nsub_new += 1
+    pfof_np = remap[target[pfof_np]].astype(np.int32)
+    return pfof_np, nsub_new, len(surv) - nsub_new
+
+
+# ---------------------------------------------------------------------------
+# Padded structure context and outlier values
+# ---------------------------------------------------------------------------
+
+def _next_pow2(x: int, lo: int = 1024) -> int:
+    k = lo
+    while k < x:
+        k *= 2
+    return k
+
+
+def _lattice(ii: torch.Tensor, side: torch.Tensor, dtype) -> torch.Tensor:
+    """(..., 3) cubic lattice coordinates of the slot numbers ``ii``."""
+    sd = torch.clamp_min(side, 1)
+    return torch.stack([ii % sd, (ii // sd) % sd, ii // (sd * sd)],
+                       -1).to(dtype)
+
+
+def _prep_class(pos, vel, mass, dens, order, starts, nsubs, sides,
+                npad: int, boxsize: float, spacing: float, cmadjust: bool):
+    """Padded contexts of B structures of one pad size, gathered from the
+    group-sorted ``order`` (reference ``_prep_class_device``): members
+    unwrapped about the first one, shifted to their centre of mass
+    (``icmrefadjust``), then the pad lattice.  Returns (idx (B, npad),
+    pos, vel, mass, valid, dens or None)."""
+    n = pos.shape[0]
+    dev = pos.device
+    ar = torch.arange(npad, device=dev)
+    valid = ar[None, :] < nsubs[:, None]
+    slot = torch.minimum(starts[:, None] + ar[None, :],
+                         (starts + nsubs - 1)[:, None])
+    idx = order[torch.clamp(slot, 0, n - 1)]
+    gpos, gvel = pos[idx], vel[idx]
+    gmass = torch.where(valid, mass[idx], 0.0)
+    if boxsize:
+        ref = gpos[:, 0:1]
+        d = gpos - ref
+        gpos = ref + d - boxsize * torch.round(d / boxsize)
+    if cmadjust:
+        w = gmass / torch.clamp_min(gmass.sum(1, keepdim=True), 1e-30)
+        gpos = gpos - (gpos * w[..., None]).sum(1, keepdim=True)
+        gvel = gvel - (gvel * w[..., None]).sum(1, keepdim=True)
+    gvel = torch.where(valid[..., None], gvel, 0.0)
+    ii = torch.clamp_min(ar[None, :] - nsubs[:, None], 0)
+    lat = _lattice(ii, sides[:, None], gpos.dtype)
+    corner = torch.where(valid[..., None], gpos, math.inf).amin(
+        1, keepdim=True) - 10.0 * spacing
+    gpos = torch.where(valid[..., None], gpos, corner - lat * spacing)
+    gdens = None if dens is None else torch.where(valid, dens[idx], 1.0)
+    return idx, gpos, gvel, gmass, valid, gdens
+
+
+def _cellsize(opt: C.Options, nsub: int) -> int:
+    cellsize = int(max(C.MINCELLSIZE, opt.Ncellfac * nsub))
+    return min(cellsize, max(32, nsub // 2))
+
+
+def _ratios(opt: C.Options, pos, vel, mass, valid, dens, cellsize):
+    """R of (B, npad) padded structures of one pad size: their velocity
+    density unless ``dens`` replays one, background grid and nearest
+    cells.  Returns (R, dens)."""
+    if dens is None:
+        exact = opt.iLocalVelDenApproxCalcFlag == 0
+        dens = torch.stack([localfield.velocity_density(
+            pos[b], vel[b], nvel=opt.Nvel, nsearch=opt.Nsearch,
+            active=valid[b], exact=exact) for b in range(pos.shape[0])])
+    cellpos, gvel, gdispinv, _ = bgfield.background_grid(
+        pos, vel, mass, cellsize, gridtype=opt.gridtype)
+    return bgfield.denv_ratio(pos, vel, dens, cellpos, gvel, gdispinv,
+                              opt.Nsearch), dens
+
+
+def structure_outliers(opt: C.Options, pos, vel, mass, valid, dens=None):
+    """Background grid + velocity density + outlier values of one padded
+    structure or a (B, npad) batch of one pad size (reference
+    SearchSubSub's per-structure preamble, search.cxx:2631-2649).
+    ``dens`` replays a density (the global one, or a cache).  Returns
+    (ell (-inf on padded rows), dens, (mode, sdlow, sdhigh))."""
+    single = pos.dim() == 2
+    if single:
+        pos, vel, mass, valid = pos[None], vel[None], mass[None], valid[None]
+        dens = None if dens is None else dens[None]
+    R, dens = _ratios(opt, pos, vel, mass, valid, dens,
+                      _cellsize(opt, int(valid[0].sum())))
+    ell, stats = bgfield.outlier_values(R, mass, active=valid)
+    ell = torch.where(valid, ell, -math.inf)
+    if single:
+        return ell[0], dens[0], tuple(s[0] for s in stats)
+    return ell, dens, stats
+
+
+# ---------------------------------------------------------------------------
+# Merger cores (reference search.cxx:1530-1816, HaloCoreGrowth:1817)
+# ---------------------------------------------------------------------------
+
+def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
+                     sublevel: int = 1, bounds=None
+                     ) -> Tuple[torch.Tensor, int]:
+    """6DFOF core search with shrinking linking lengths, then phase-tensor
+    core growth.  ``pfof_sub``: substructure ids (those particles are
+    left out).  Returns (int64 core id per particle, ncores): core 1 is
+    the main core, 2..ncores merger remnants to promote (reference
+    iHaloCoreSearch = 2)."""
+    n = pos.shape[0]
+    pfof_sub = pfof_sub.long()
+    nvalid = int(valid.sum())
+    w = torch.where(valid, mass, 0.0)
+    mtot = torch.clamp_min(w.sum(), 1e-30)
+    vmean = (vel * w[:, None]).sum(0) / mtot
+    sigv2 = float((seg.sq3(vel - vmean) * w).sum() / mtot / 3.0)
+
+    ellx = opt.ellxscale * opt.ellphys * opt.ellhalophysfac * \
+        opt.halocorexfac * opt.halocorexfac ** (sublevel - 1)
+    ellx2 = ellx * ellx
+    ellv2 = sigv2 * opt.halocorevfac ** 2
+    minsize = max(int(nvalid * opt.halocorenfac *
+                      opt.halocorenumfaciter ** (sublevel - 1)), opt.MinSize)
+
+    core = torch.zeros(n, dtype=torch.int64, device=pos.device)
+    ncores = 0
+    # the linking length only shrinks (halocorexfaciter <= 1): the loop-0
+    # table holds every later loop's pairs
+    edges = None
+    if opt.halocorexfaciter <= 1.0:
+        edges = fof.build_edges(pos, math.sqrt(ellx2), fields={"vel": vel},
+                                predicate=fof.Pred3D(float(ellx2)),
+                                bounds=bounds)
+    untagged = valid & (pfof_sub == 0)
+    for loop in range(max(1, opt.halocorenumloops)):
+        elig = untagged if loop == 0 else untagged & (core == 1)
+        pred = Pred6DCore(float(ellx2), float(max(ellv2, 1e-30)))
+        if edges is not None:
+            fields_s = dict(edges.fields_s)
+            fields_s["elig"] = elig.to(torch.int32)[edges.order]
+            mask = fof.refine_edge_mask(edges.pos_s, fields_s, edges.erow,
+                                        edges.ecol, edges.boxsize, pred)
+            labels = fof.fof_labels_from_edges(
+                edges.erow[mask], edges.ecol[mask], n,
+                undirected=edges.undirected)
+            pfc_s, ngc = fof.renumber_by_size(labels, minsize,
+                                              orig_index=edges.order)
+            pfc = _scatter_back(pfc_s.long(), edges.order)
+        else:
+            pfc, ngc = fof.fof3d(pos, math.sqrt(ellx2), min_size=minsize,
+                                 vel=vel, extra_fields={
+                                     "elig": elig.to(torch.int32)},
+                                 predicate=pred, bounds=bounds)
+            pfc = pfc.long()
+        if ngc == 0:
+            break
+        if loop == 0:
+            core, ncores = pfc, ngc
+        else:
+            # the refined main core replaces core 1; extra groups append
+            core = torch.where((core == 1) & (pfc == 0), 0, core)
+            core = torch.where(pfc == 1, 1, core)
+            if ngc > 1:
+                core = torch.where(pfc > 1, pfc - 1 + ncores, core)
+                ncores += ngc - 1
+        ellx2 *= opt.halocorexfaciter ** 2
+        ellv2 *= opt.halocorevfaciter ** 2
+        minsize = max(int(minsize * opt.halocorenumfaciter), opt.MinSize)
+        if minsize * opt.halocorenumfaciter >= nvalid:
+            break
+    if ncores < 2:
+        return torch.zeros(n, dtype=torch.int64, device=pos.device), 0
+    if opt.iHaloCoreSearch >= 2 and opt.iPhaseCoreGrowth:
+        core = _phase_tensor_growth(pos, vel, mass, valid, pfof_sub, core,
+                                    ncores)
+    return core, ncores
+
+
+def _phase_tensor_growth(pos, vel, mass, valid, pfof_sub, core,
+                         ncores: int, iters: int = 4) -> torch.Tensor:
+    """Untagged halo particles join the core of least Mahalanobis phase
+    distance, the cores' phase means and dispersion tensors recomputed
+    each of ``iters`` steps (sorted segment sums: no float atomics)."""
+    nc1 = ncores + 1
+    phase = torch.cat([pos, vel], 1)
+    assignable = valid & (pfof_sub == 0)
+    eye = torch.eye(6, dtype=pos.dtype, device=pos.device)
+    core = core.long()
+    for _ in range(iters):
+        w = torch.where((core > 0) & valid, mass, 0.0)
+        order = torch.argsort(core, stable=True)
+        cs, ws, ps = core[order], w[order], phase[order]
+        msum = torch.clamp_min(seg.segment_sum(ws, cs, nc1, presorted=True),
+                               1e-30)
+        mu = seg.segment_sum(ps * ws[:, None], cs, nc1,
+                             presorted=True) / msum[:, None]
+        d = ps - mu[cs]
+        outer = (d[:, :, None] * d[:, None, :] * ws[:, None, None])
+        cov = seg.segment_sum(outer.reshape(-1, 36), cs, nc1,
+                              presorted=True).view(nc1, 6, 6) / \
+            msum[:, None, None]
+        tr = torch.diagonal(cov, dim1=1, dim2=2).sum(-1) / 6.0
+        cov = cov + (1e-6 * torch.clamp_min(tr, 1e-20))[:, None, None] * eye
+        icov = torch.linalg.inv(cov)
+        dd = phase[:, None, :] - mu[None, 1:, :]
+        md = torch.einsum("nci,cij,ncj->nc", dd, icov[1:], dd)
+        best = torch.argmin(md, 1) + 1
+        core = torch.where(assignable, best, core)
+    return core
+
+
+# ---------------------------------------------------------------------------
+# The recursion (reference SearchSubSub, search.cxx:2480-2946)
+# ---------------------------------------------------------------------------
+
+_B_ELEMS = 1 << 22   # padded rows per batched outlier pass
+
+
+def _rank_remap(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each positive id's 1-based rank among the distinct positive ids
+    (0 elsewhere), and the distinct count (a 0-d tensor)."""
+    u = torch.unique(ids[ids > 0])
+    r = torch.searchsorted(u, ids) + 1
+    return torch.where(ids > 0, r, 0), torch.tensor(u.shape[0],
+                                                    device=ids.device)
+
+
+def _global_density(opt: C.Options, pos, vel, act, spacing: float):
+    """The velocity density of the ``act`` particles (those in structures
+    of MINSUBSIZE members or more), computed once (reference
+    search.cxx:214-240) on their compacted rows padded to a power of two
+    with a lattice of isolated points, or replayed from ``opt.smname``
+    (reference Read/WriteLocalVelocityDensity, io.cxx:178-251).  Returns
+    the (n,) density, 0 elsewhere, or None when no particle is active."""
+    n = pos.shape[0]
+    aidx = torch.nonzero(act).squeeze(1)
+    nact = int(aidx.shape[0])
+    if nact == 0:
+        return None
+    aidx_h = aidx.cpu().numpy() if opt.smname else None
+    loaded = cache_io.read_local_velocity_density(opt.smname, aidx_h) \
+        if opt.smname else None
+    dens = torch.zeros(n, dtype=pos.dtype, device=pos.device)
+    if loaded is not None and len(loaded) == nact:
+        dens[aidx] = torch.from_numpy(np.asarray(loaded, np.float32)).to(
+            pos.device)
+        return dens
+    npadg = _next_pow2(nact)
+    side = int(np.ceil(max(npadg - nact, 1) ** (1 / 3)))
+    gpos, gvel = pos[aidx], vel[aidx]
+    ii = torch.arange(npadg - nact, device=pos.device)
+    lat = _lattice(ii, torch.tensor(side, device=pos.device), pos.dtype)
+    corner = gpos.amin(0) - 10.0 * spacing
+    gpos = torch.cat([gpos, corner - lat * spacing])
+    gvel = torch.cat([gvel, gvel.new_zeros(npadg - nact, 3)])
+    avalid = torch.arange(npadg, device=pos.device) < nact
+    exact = opt.iLocalVelDenApproxCalcFlag == 0
+    d = localfield.velocity_density(gpos, gvel, nvel=opt.Nvel,
+                                    nsearch=opt.Nsearch, active=avalid,
+                                    exact=exact)
+    dens[aidx] = d[:nact]
+    if opt.smname:
+        cache_io.write_local_velocity_density(
+            opt.smname, d[:nact].cpu().numpy(), aidx_h)
+    return dens
+
+
+def _hostid(parent: np.ndarray) -> np.ndarray:
+    """Top-level ancestor of every group (-1 for field objects), by
+    pointer jumping (reference GetHierarchy)."""
+    ng1 = len(parent)
+    anc = np.arange(ng1, dtype=np.int64)
+    for _ in range(C.MAXSUBLEVEL + 2):
+        nxt = parent[anc]
+        stepped = nxt > 0
+        if not stepped.any():
+            break
+        anc = np.where(stepped, nxt, anc)
+    hostid = np.where(anc == np.arange(ng1), -1, anc)
+    hostid[0] = -1
+    return hostid
+
+
+def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
+                   boxsize: Optional[float] = None, mesh=None,
+                   timings: Optional[Dict[str, float]] = None):
+    """Recursive substructure search (reference SearchSubSub).  Returns
+    (pfof int64 tensor, ngroups_total, hostid, parent, level), the
+    per-group arrays numpy and indexed by group id (entry 0 unused;
+    hostid -1 for field objects).  ``timings`` receives the per-phase
+    times; the counters ``subsub_level<L>_structures`` (searched),
+    ``_candidates`` (before the unbind), ``_found`` and
+    ``subsub_cores_promoted`` go to ``utils/telemetry``."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    dev = pos.device if isinstance(pos, torch.Tensor) else torch.device("cpu")
+
+    def as_f32(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    pos, vel, mass = as_f32(pos), as_f32(vel), as_f32(mass)
+    pfof = (pfof if isinstance(pfof, torch.Tensor)
+            else torch.from_numpy(np.asarray(pfof))).to(dev).long()
+    laps = _Laps(dev, timings if timings is not None else {})
+    n = pos.shape[0]
+    ng_total = int(ngroups)
+    parent = np.zeros(ng_total + 1, np.int64)
+    level_of = np.zeros(ng_total + 1, np.int32)
+    # pad-lattice pitch beyond every linking length of the search
+    spacing = 3.0 * opt.ellxscale * opt.ellphys * max(1.0, opt.ellxfac)
+    sizes0_t = seg.group_sizes(pfof, ng_total)
+    sizes0 = sizes0_t.cpu().numpy()
+    queue = [g for g in range(1, ng_total + 1) if sizes0[g] >= C.MINSUBSIZE]
+
+    dens_global = None
+    if opt.iSubSearch and queue and not opt.iHaloLocalDensity:
+        act = (pfof > 0) & (sizes0_t[pfof] >= C.MINSUBSIZE)
+        dens_global = _global_density(opt, pos, vel, act, spacing)
+    laps.lap("density")
+
+    cores_on = opt.iHaloCoreSearch > 0
+    for level in range(1, C.MAXSUBLEVEL + 1):
+        if not queue or not opt.iSubSearch:
+            break
+        lvl_order = torch.argsort(pfof, stable=True)
+        offs = torch.searchsorted(
+            pfof[lvl_order], torch.arange(ng_total + 2, device=dev)).cpu()
+        offs = offs.numpy()
+        prep = []
+        for g in queue:
+            nsub = int(offs[g + 1] - offs[g])
+            if nsub < C.MINSUBSIZE:
+                continue
+            npad = _next_pow2(nsub)
+            prep.append({"g": g, "start": int(offs[g]), "nsub": nsub,
+                         "npad": npad, "cellsize": _cellsize(opt, nsub),
+                         "side": int(np.ceil(max(npad - nsub, 1) ** (1 / 3)))})
+        telemetry.count(f"subsub_level{level}_structures", len(prep))
+        _prep_level(opt, prep, pos, vel, mass, dens_global, lvl_order,
+                    boxsize, spacing)
+        laps.lap("prep")
+        _outliers_level(opt, prep)
+        laps.lap("outliers")
+        for e in prep:
+            nsub = e["nsub"]
+            sub, ng_sub = search_subset(
+                opt, e["ppos"][:nsub], e["pvel"][:nsub], e["pmass"][:nsub],
+                e["ell"][:nsub], bounds=e["bounds"], npad=e["npad"])
+            e["sub"], e["ng_sub"] = sub, ng_sub
+        laps.lap("subset")
+        pend = []
+        for e in prep:
+            _cores_and_merges(opt, e, level, cores_on)
+            if e["ng_sub"] > 0:
+                pend.append(e)
+        laps.lap("cores")
+        telemetry.count(f"subsub_level{level}_candidates",
+                        sum(e["ng_sub"] for e in pend))
+        if pend and opt.uinfo.unbindflag:
+            _unbind_level(opt, pend)
+        laps.lap("unbind")
+        pend = [e for e in pend if e["ng_sub"] > 0]
+        new_queue: List[int] = []
+        if pend:
+            ngmax = max(e["ng_sub"] for e in pend)
+            sizes_h = torch.stack([seg.group_sizes(e["sub"], ngmax)
+                                   for e in pend]).cpu().numpy()
+        for j, e in enumerate(pend):
+            g, ng_sub = e["g"], e["ng_sub"]
+            sel = e["sub"] > 0
+            pfof[e["idx"][:e["nsub"]][sel]] = ng_total + e["sub"][sel]
+            parent = np.concatenate([parent, np.full(ng_sub, g, np.int64)])
+            level_of = np.concatenate([level_of,
+                                       np.full(ng_sub, level, np.int32)])
+            new_queue.extend(ng_total + s for s in range(1, ng_sub + 1)
+                             if sizes_h[j][s] >= C.MINSUBSIZE)
+            ng_total += ng_sub
+        telemetry.count(f"subsub_level{level}_found",
+                        sum(e["ng_sub"] for e in pend))
+        queue = new_queue
+        for e in prep:
+            e.clear()
+        laps.lap("splice")
+    return pfof, ng_total, _hostid(parent), parent, level_of
+
+
+def _prep_level(opt: C.Options, prep: List[dict], pos, vel, mass,
+                dens_global, lvl_order, boxsize, spacing: float) -> None:
+    """Padded contexts of a level's structures, one batched build per pad
+    size; each entry gains its rows (``idx``), padded arrays, the cached
+    density (None in halo-local mode) and its padded bounds."""
+    dev = pos.device
+    by_npad: Dict[int, List[dict]] = {}
+    for e in prep:
+        by_npad.setdefault(e["npad"], []).append(e)
+    for npad, grp in by_npad.items():
+        def col(key):
+            return torch.tensor([e[key] for e in grp], device=dev)
+        idx, ppos, pvel, pmass, valid, dens = _prep_class(
+            pos, vel, mass, dens_global, lvl_order, col("start"),
+            col("nsub"), col("side"), npad, float(boxsize or 0.0), spacing,
+            bool(opt.icmrefadjust))
+        lohi = torch.stack([ppos.amin(1), ppos.amax(1)], 1).double().cpu()
+        for j, e in enumerate(grp):
+            e.update(idx=idx[j], ppos=ppos[j], pvel=pvel[j], pmass=pmass[j],
+                     valid=valid[j], cached=None if dens is None else dens[j],
+                     bounds=(lohi[j, 0].numpy(), lohi[j, 1].numpy()))
+
+
+def _outliers_level(opt: C.Options, prep: List[dict]) -> None:
+    """Outlier values of a level's structures: R batched over structures
+    of one pad size and grid depth (the reference's buckets), then one
+    host fit for every structure that takes one."""
+    buckets: Dict[tuple, List[dict]] = {}
+    for e in prep:
+        key = (e["npad"], bgfield.grid_levels(e["npad"], e["cellsize"]))
+        buckets.setdefault(key, []).append(e)
+    batches = []
+    for (npad, _), entries in buckets.items():
+        bmax = max(1, _B_ELEMS // npad)
+        for lo in range(0, len(entries), bmax):
+            grp = entries[lo:lo + bmax]
+            valid = torch.stack([e["valid"] for e in grp])
+            mass = torch.stack([e["pmass"] for e in grp])
+            cached = grp[0]["cached"]
+            R, _ = _ratios(opt, torch.stack([e["ppos"] for e in grp]),
+                           torch.stack([e["pvel"] for e in grp]), mass, valid,
+                           None if cached is None else
+                           torch.stack([e["cached"] for e in grp]),
+                           grp[0]["cellsize"])
+            batches.append((grp, R, valid,
+                            bgfield.distribution(R, mass, valid)))
+    bgfield.refine([b[3] for b in batches])
+    for grp, R, valid, dist in batches:
+        ell = torch.where(valid, bgfield.normalise(R, *dist[:3]), -math.inf)
+        for j, e in enumerate(grp):
+            e["ell"] = ell[j]
+
+
+def _cores_and_merges(opt: C.Options, e: dict, level: int,
+                      cores_on: bool) -> None:
+    """The merger-core search of one structure (cores beyond the main one
+    become substructures after its subset groups) and the phase merges
+    (``coresubmergemindist`` > 0) on the host."""
+    nsub, ng_sub, sub = e["nsub"], e["ng_sub"], e["sub"]
+    ppos, pvel, pmass = (e[k][:nsub] for k in ("ppos", "pvel", "pmass"))
+    host = None
+
+    def host_arrays():
+        return tuple(a.cpu().numpy() for a in (ppos, pvel, pmass))
+
+    if cores_on and level <= opt.maxnlevelcoresearch:
+        core, ncores = halo_core_search(opt, ppos, pvel, pmass,
+                                        e["valid"][:nsub], sub,
+                                        sublevel=level, bounds=e["bounds"])
+        if ncores >= 2:
+            extra = (core > 1) & (sub == 0)
+            sub = torch.where(extra, core - 1 + ng_sub, sub)
+            ncore_extra = ncores - 1
+            if opt.coresubmergemindist > 0 and ng_sub > 0:
+                host = host_arrays()
+                sub_np, ncore_extra = merge_substructures_cores_phase(
+                    *host, sub.cpu().numpy(), ng_sub, ncore_extra,
+                    opt.coresubmergemindist)
+                sub = torch.from_numpy(sub_np.astype(np.int64)).to(sub.device)
+            telemetry.count("subsub_cores_promoted", ncore_extra)
+            ng_sub += ncore_extra
+    if opt.coresubmergemindist > 0 and ng_sub > 1:
+        host = host or host_arrays()
+        sub_np, ns_new, nc_new = merge_substructures_phase(
+            *host, sub.cpu().numpy(), ng_sub, 0, opt.coresubmergemindist)
+        sub = torch.from_numpy(sub_np.astype(np.int64)).to(sub.device)
+        ng_sub = ns_new + nc_new
+    e["sub"], e["ng_sub"] = sub, int(ng_sub)
+
+
+def _unbind_level(opt: C.Options, pend: List[dict]) -> None:
+    """One unbind over every candidate of a level: the structures' rows
+    concatenate into one problem with their group ids offset, and each
+    structure's surviving ids are ranked back to 1..k (its groups keep
+    their relative size order under the global renumbering).  The
+    reference concatenates the padded rows; their count sets the
+    ejection's compaction schedule, so it is passed as ``layout_n``."""
+    base = 0
+    gids = []
+    for e in pend:
+        gids.append(torch.where(e["sub"] > 0, e["sub"] + base, 0))
+        base += e["ng_sub"]
+    cat = [torch.cat([e[k][:e["nsub"]] for e in pend])
+           for k in ("ppos", "pvel", "pmass")]
+    ures = unbind_mod.check_unbound_groups(
+        *cat, torch.cat(gids), base, opt.uinfo, opt.G, min_size=opt.MinSize,
+        layout_n=sum(e["npad"] for e in pend))
+    off, ks = 0, []
+    for e in pend:
+        e["sub"], k = _rank_remap(ures.pfof[off:off + e["nsub"]])
+        off += e["nsub"]
+        ks.append(k)
+    for e, k in zip(pend, torch.stack(ks).cpu().tolist()):
+        e["ng_sub"] = int(k)

@@ -106,10 +106,13 @@ def check_unbound_groups(pos: torch.Tensor, vel: torch.Tensor,
                          num_groups: int, uinfo: UnbindInfo, G: float,
                          boxsize: Optional[float] = None,
                          min_size: int = 20,
-                         W: Optional[torch.Tensor] = None) -> UnbindResult:
+                         W: Optional[torch.Tensor] = None,
+                         layout_n: Optional[int] = None) -> UnbindResult:
     """Compute potentials (unless ``W`` is given), eject unbound particles
     iteratively, dissolve and renumber groups (reference
-    CheckUnboundGroups, unbind.cxx:196)."""
+    CheckUnboundGroups, unbind.cxx:196).  ``layout_n``: the row count the
+    reference holds for these particles (default: N), which sets its
+    working-set capacity and so when the per-group sums start afresh."""
     n = pfof.shape[0]
     pfof = pfof.long()
     tagged = torch.nonzero(pfof > 0).squeeze(1)
@@ -126,7 +129,8 @@ def check_unbound_groups(pos: torch.Tensor, vel: torch.Tensor,
         W_t = W[order]
     # the reference's working-set capacity: its tagged-subset class, or
     # the full array when most particles are tagged
-    ncur = seg.pad_class(ntag) if 0 < ntag < n // 2 else n
+    nl = n if layout_n is None else layout_n
+    ncur = seg.pad_class(ntag) if 0 < ntag < nl // 2 else nl
     bound_t = eject(pos_t, vel_t, mass_t, pfof_t, W_t, num_groups, uinfo,
                     G, boxsize, min_size, ncur)
     bound = torch.zeros(n, dtype=torch.bool, device=pfof.device)

@@ -1,5 +1,6 @@
 """Segmented (per-group) tensor operations (port of the helpers of
-velociraptor_stf_tpu/ops/segments.py that the main path uses).
+velociraptor_stf_tpu/ops/segments.py), and ``smallest_k``, the port's
+stand-in for ``jax.lax.top_k`` with its tie order.
 
 Segment sums add each segment's elements in index order with
 ``torch.segment_reduce`` over the values sorted (stably) by segment: on the
@@ -140,6 +141,52 @@ def lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
     ``jnp.lexsort((minor, major))`` as two stable argsorts."""
     order = torch.argsort(minor, stable=True)
     return order[torch.argsort(major[order], stable=True)]
+
+
+def smallest_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` smallest entries along the last axis in
+    ascending order, equal values in index order: what
+    ``jax.lax.top_k(-x, k)`` selects.  ``torch.topk`` promises no order
+    among equal values, so its k + 1 smallest are re-sorted by (value,
+    index), and rows whose k-th and (k+1)-th values tie -- where the
+    choice among equal values decides the set -- take a full stable
+    sort."""
+    L = x.shape[-1]
+    k1 = min(k + 1, L)
+    v, i = torch.topk(x, k1, dim=-1, largest=False, sorted=True)
+    o = torch.argsort(i, dim=-1)
+    v, i = v.gather(-1, o), i.gather(-1, o)
+    o = torch.argsort(v, dim=-1, stable=True)
+    v, i = v.gather(-1, o), i.gather(-1, o)
+    if k1 == k:
+        return i
+    i = i[..., :k].contiguous()
+    tie = v[..., k - 1] == v[..., k]
+    if bool(tie.any()):
+        rows = torch.nonzero(tie.reshape(-1)).squeeze(1)
+        full = torch.argsort(x.reshape(-1, L)[rows], dim=-1, stable=True)
+        i.view(-1, k)[rows] = full[:, :k]
+    return i
+
+
+def pair_counts_sparse(gi: torch.Tensor, gj: torch.Tensor,
+                       mask: torch.Tensor):
+    """The distinct (i, j) pairs among the masked index pairs, in
+    lexicographic order, and how often each occurs, as host numpy arrays
+    (reference ``pair_counts_sparse``: the sparse stand-in for a dense
+    (ng+1)^2 link-count table, MergeGroups search.cxx:3894+)."""
+    a, b = gi[mask].long(), gj[mask].long()
+    if a.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64)
+        return z.numpy(), z.numpy(), z.numpy()
+    order = lexsort2(b, a)
+    a, b = a[order], b[order]
+    first = torch.ones_like(a, dtype=torch.bool)
+    first[1:] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
+    starts = torch.nonzero(first).squeeze(1)
+    ends = torch.cat([starts[1:], starts.new_tensor([a.shape[0]])])
+    return (a[starts].cpu().numpy(), b[starts].cpu().numpy(),
+            (ends - starts).cpu().numpy())
 
 
 def segment_argmin(values: torch.Tensor, seg: torch.Tensor,

@@ -6,14 +6,15 @@ the port imports nothing of the JAX package.
 Equivalent of the reference's wall-clock instrumentation
 (``MyGetTime`` reference utilities.cxx:36 and the ``TIME::`` phase
 lines printed by main.cxx:247-534).  The JAX package's profiler trace
-context is not copied: it needs jax.
+context is not copied: it needs jax.  ``device_clock`` is the port's stage
+clock: it reads the host time after the card has finished its work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 
 class PhaseTimer:
@@ -45,3 +46,14 @@ class PhaseTimer:
         print(f"TIME::total {total:.6g} s "
               f"({', '.join(f'{k}={v:.3g}' for k, v in self.times.items())})")
 
+
+def device_clock(device) -> Callable[[], float]:
+    """A stage clock: host seconds, read after ``device`` (a
+    ``torch.device``) has finished every queued kernel."""
+    def clock() -> float:
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+    return clock

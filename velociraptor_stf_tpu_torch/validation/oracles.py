@@ -3,8 +3,8 @@
 The port's copy of ``velociraptor_stf_tpu/validation/oracles.py``,
 holding the oracles that ``chip_smoke.py`` holds the port to (SO,
 unbinding, velocity scales, the 3D and 6D FOF partitions, renumbering
-and the periodic unwrap), so that the port imports nothing of the JAX
-package.
+and the periodic unwrap) and the substructure search's outlier fit and
+core growth, so that the port imports nothing of the JAX package.
 
 The reference cannot be built here (NBodylib absent), so these sequential
 double-precision reimplementations of the three numerically delicate
@@ -289,3 +289,148 @@ def unwrap_group_oracle(pos: np.ndarray, boxsize: float) -> np.ndarray:
     pos = np.asarray(pos, np.float64)
     d = pos - pos[0]
     return pos[0] + d - boxsize * np.round(d / boxsize)
+
+
+def outlier_fit_oracle(R: np.ndarray, mass: np.ndarray,
+                       skewfit: bool = True
+                       ) -> Tuple[float, float, float, np.ndarray]:
+    """(mode, sdlow, sdhigh, ell) from the R distribution — float64
+    sequential mirror of the reference's outlier normalisation
+    (reference localbgcomp.cxx:134-470
+    ``DetermineDenVRatioDistribution`` + ``GetOutliersValues``:471, with
+    the skew-Gaussian refinement of stf-fitting.h:11-48).
+
+    Steps, as the reference: Sturges-rule histogram of R; mode = most
+    probable bin centre; two-sided widths from the e^{-1/2} crossings
+    either side of the peak (linear interpolation); Scott-rule rebin
+    around the peak; weighted nonlinear LS fit of the piecewise
+    skew-Gaussian A*exp(-(x-mu)^2 / (2 var s2)) [x<=mu] /
+    A*exp(-(x-mu)^2/(2 var)) [x>mu], via scipy least_squares (an
+    independent optimiser from the JAX LM path it validates);
+    ell = (R-mode)/sdhigh above the mode, /sdlow below (GetOutliersValues).
+    """
+    R = np.asarray(R, np.float64)
+    m = np.asarray(mass, np.float64)
+    n = len(R)
+    nbins = int(math.ceil(math.log10(n) / math.log10(2.0) + 1) * 4)
+    rmin, rmax = float(R.min()), float(R.max())
+    # reference binning: span 4|rmin| from a slightly lowered rmin
+    deltar = 4.0 * abs(rmin) / nbins
+    if deltar <= 0:
+        deltar = max((rmax - rmin) / nbins, 1e-12)
+    lo = rmin - deltar * 0.025
+    deltar *= 1.05
+    hist = np.zeros(nbins)
+    for x, w in zip(R, m):
+        ir = int((x - lo) / deltar)
+        if 0 <= ir < nbins:
+            hist[ir] += w
+    ip = int(np.argmax(hist))
+    mode = (ip + 0.5) * deltar + lo
+    thr = math.exp(-0.5) * hist[ip]
+    sdlow = sdhigh = deltar
+    for i in range(ip, -1, -1):
+        if hist[i] <= thr:
+            sdlow = mode - (((thr - hist[i]) /
+                             max(hist[i + 1] - hist[i], 1e-300)
+                             + i + 0.5) * deltar + lo)
+            break
+    else:
+        sdlow = ip * deltar
+    for i in range(ip, nbins):
+        if hist[i] <= thr:
+            sdhigh = ((((thr - hist[i - 1]) /
+                        min(hist[i] - hist[i - 1], -1e-300)
+                        + i - 0.5) * deltar + lo) - mode)
+            break
+    else:
+        sdhigh = (nbins - 1 - ip) * deltar
+    sdlow = max(sdlow, 1e-6)
+    sdhigh = max(sdhigh, 1e-6)
+
+    if skewfit:
+        from scipy.optimize import least_squares
+
+        # Scott-rule rebin around the peak
+        lo2 = mode - 4.0 * sdlow
+        hi2 = mode + 4.0 * sdhigh
+        sel = (R >= lo2) & (R < hi2)
+        npeak = max(int(sel.sum()), 2)
+        d2 = 3.5 * math.sqrt(sdlow ** 2 + sdhigh ** 2) / npeak ** (1 / 3)
+        nb2 = max(int(math.ceil((hi2 - lo2) / d2 + 1)), 8)
+        w2 = (hi2 - lo2) / nb2
+        rbin = np.zeros(nb2)
+        for x, w in zip(R[sel], m[sel]):
+            rbin[min(int((x - lo2) / w2), nb2 - 1)] += w
+        xbin = lo2 + (np.arange(nb2) + 0.5) * w2
+
+        def resid(p):
+            A, mu, var, s2 = p
+            var, s2 = max(var, 1e-12), max(s2, 1e-12)
+            dx2 = (xbin - mu) ** 2
+            mdl = np.where(xbin <= mu, A * np.exp(-0.5 * dx2 / (var * s2)),
+                           A * np.exp(-0.5 * dx2 / var))
+            return mdl - rbin
+
+        p0 = [float(rbin.max()), mode, sdhigh ** 2 * 0.8, 1.0]
+        try:
+            fit = least_squares(resid, p0, method="lm", max_nfev=2000)
+            A, mu, var, s2 = fit.x
+            if np.isfinite([A, mu, var, s2]).all() and var > 0 and s2 > 0:
+                mode = float(mu)
+                sdlow = float(math.sqrt(var * s2))
+                sdhigh = float(math.sqrt(var))
+        except Exception:
+            pass
+    d = R - mode
+    ell = np.where(d > 0, d / sdhigh, d / sdlow)
+    return mode, sdlow, sdhigh, ell
+
+
+def core_growth_oracle(pos: np.ndarray, vel: np.ndarray, mass: np.ndarray,
+                       valid: np.ndarray, pfof_sub: np.ndarray,
+                       core: np.ndarray, ncores: int,
+                       iters: int = 4) -> np.ndarray:
+    """Phase-tensor core growth — float64 sequential mirror of the
+    reference's Mahalanobis core assignment
+    (reference search.cxx:1880-2024 ``HaloCoreGrowth`` with
+    ``iPhaseCoreGrowth``): per-core mass-weighted 6D phase mean and
+    dispersion tensor, every untagged particle assigned to the core of
+    smallest Mahalanobis phase distance, dispersion tensors recomputed
+    each growth step.  Returns the final core id per particle.
+    """
+    phase = np.concatenate([np.asarray(pos, np.float64),
+                            np.asarray(vel, np.float64)], axis=1)
+    m = np.asarray(mass, np.float64)
+    core = np.asarray(core).copy()
+    assignable = np.asarray(valid) & (np.asarray(pfof_sub) == 0)
+    n = len(core)
+    for _ in range(iters):
+        mu = np.zeros((ncores + 1, 6))
+        icov = np.zeros((ncores + 1, 6, 6))
+        for c in range(1, ncores + 1):
+            sel = (core == c) & np.asarray(valid)
+            if not sel.any():
+                icov[c] = np.eye(6)
+                continue
+            w = m[sel]
+            mt = w.sum()
+            mu[c] = (phase[sel] * w[:, None]).sum(0) / mt
+            d = phase[sel] - mu[c]
+            cov = np.einsum("ni,nj,n->ij", d, d, w) / mt
+            tr = np.trace(cov) / 6.0
+            cov = cov + 1e-6 * max(tr, 1e-20) * np.eye(6)
+            icov[c] = np.linalg.inv(cov)
+        newcore = core.copy()
+        for i in range(n):
+            if not assignable[i]:
+                continue
+            best, bestd = 1, np.inf
+            for c in range(1, ncores + 1):
+                d = phase[i] - mu[c]
+                D2 = d @ icov[c] @ d
+                if D2 < bestd:
+                    bestd, best = D2, c
+            newcore[i] = best
+        core = newcore
+    return core
