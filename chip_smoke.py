@@ -75,7 +75,21 @@ csrc`` and drives the port on the card, in phases:
    both runs equal bit for bit, the hierarchy consistent, every member of
    a top-level structure bound; then three planted hosts with subhalos
    through find_structures on the card and on the CPU: equal ids and
-   hierarchy, at least two substructures.
+   hierarchy, at least two substructures;
+10. the mesh path (``velociraptor_stf_tpu_torch/parallel``): find_structures
+   with ``mesh=`` four shards on one card (and over every card when there
+   are several) at 256^3 with phase 4's options, twice: against phase 4's
+   catalog the 3DFOF ids, group count and ids (so the bound masks) equal,
+   gmass / gM200c / gR200c / gMvir within rtol 1e-6 (a differing
+   particle is printed with its bound and 6D margins), both runs equal
+   bit for bit; stage times, per-shard loads and candidate pairs, the
+   collectives by stage and kind (checked as the audit test checks
+   them), the potential's launches under the mesh (``launches_mesh`` in
+   the kernel JSON, > 0), peak memory; then the hydro and substructure
+   paths at 128^3 and the planted subhalos, mesh against one card (ids,
+   hierarchy and association equal), the substructure path with the
+   density sharded (field structures equal), and the sharded density
+   against one card's on the JAX test's statistics at 2^20 particles.
 
 Any failure exits non-zero.  The last line of stdout is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -1444,6 +1458,311 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     return opt, counts
 
 
+MESH_SHARDS = 4             # phase 10's shards on one card
+MESH_SMALL_N = 128 ** 3     # phase 10's hydro and substructure paths
+DENSITY_N = 1 << 20         # phase 10's density comparison
+SO_RTOL = 1e-6              # the JAX package's mesh gate on SO masses
+
+
+def mesh_differences(np, got, want, pos, vel, mass, opt, limit: int = 20
+                     ) -> str:
+    """Each particle whose group differs between two catalogs (at most
+    ``limit``), with its margins: the bound criterion's Eratio * T + W
+    relative to |W| in its one-device group's frame, and its nearest 6D
+    distance to 1 among the members of its 3DFOF group
+    (d2 / ell6^2 + dv2 / vscale2, the 3DFOF group's dispersion)."""
+    idx = np.nonzero(got.pfof != want.pfof)[0]
+    b6 = opt.ellphys * opt.ellxscale * opt.ellhalophysfac * \
+        opt.ellhalo6dxfac
+    lines = [f"{len(idx)} particles in another group"]
+    for i in idx[:limit]:
+        g = int(want.pfof[i]) or int(got.pfof[i])
+        dv = vel[i] - want.props["gcmvel"][g] if int(want.pfof[i]) else \
+            vel[i] - got.props["gcmvel"][g]
+        W = float(want.W[i])
+        E = opt.uinfo.Eratio * 0.5 * float(mass[i]) * float(dv @ dv) + W
+        p3 = want.pfof3d if want.pfof3d is not None else want.pfof
+        same3 = np.nonzero(p3 == p3[i])[0]
+        same3 = same3[same3 != i]
+        d = pos[same3] - pos[i]
+        d -= BOXSIZE * np.round(d / BOXSIZE)
+        w = mass[same3] / mass[same3].sum()
+        vm = (vel[same3] * w[:, None]).sum(0)
+        s2 = float((w * ((vel[same3] - vm) ** 2).sum(1)).sum()) * \
+            opt.ellhalo6dvfac ** 2
+        ph = (d ** 2).sum(1) / b6 ** 2 + \
+            ((vel[same3] - vel[i]) ** 2).sum(1) / max(s2, 1e-30)
+        lines.append(f"particle {i}: group {int(got.pfof[i])} (mesh) vs "
+                     f"{int(want.pfof[i])}; (E)/|W| {E / abs(W):.3e}; "
+                     f"nearest 6D distance - 1 {ph.min() - 1:.3e}")
+    return "; ".join(lines)
+
+
+def check_mesh_catalog(np, got, want, pos, vel, mass, opt, what: str) -> str:
+    """Phase 10's gates against the one-device catalog: the 3DFOF
+    partition, the group count, ids (hence the bound masks) and hierarchy
+    equal, the SO keys within SO_RTOL; the potentials' differing count is
+    reported."""
+    if got.ngroups != want.ngroups or \
+            not np.array_equal(got.pfof, want.pfof):
+        raise AssertionError(f"{what}: groups {got.ngroups} vs "
+                             f"{want.ngroups}; " + mesh_differences(
+                                 np, got, want, pos, vel, mass, opt))
+    for k in ("pfof3d", "hostid", "parent", "hierarchy_level", "stype"):
+        a, b = getattr(got, k), getattr(want, k)
+        if (a is None) != (b is None) or \
+                (b is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"{what}: {k} differs")
+    worst = 0.0
+    for k in ("gmass", "gM200c", "gR200c", "gMvir"):
+        a = want.props[k][1:].astype(np.float64)
+        b = got.props[k][1:].astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            rel = np.where(a == b, 0.0,
+                           np.abs(b - a) / np.maximum(np.abs(a), 1e-300))
+        worst = max(worst, float(rel.max(initial=0.0)))
+        if not np.allclose(b, a, rtol=SO_RTOL, atol=0):
+            g = int(np.argmax(rel)) + 1
+            raise AssertionError(
+                f"{what}: {k} beyond rtol {SO_RTOL} in "
+                f"{int((rel > SO_RTOL).sum())} groups, worst rel "
+                f"{rel.max():.3g} at group {g} ({int(want.props['num'][g])}"
+                f" members, gsize {float(want.props['gsize'][g]):.4g}, "
+                f"R200c {float(want.props['gR200c'][g]):.4g})")
+    nw = int((got.W != want.W).sum()) if want.W is not None else 0
+    same = sum(np.array_equal(got.props[k], want.props[k], equal_nan=True)
+               for k in want.props)
+    return (f"{got.ngroups} groups, ids, 3DFOF ids and hierarchy equal; "
+            f"SO keys worst rel {worst:.3g}; {nw} potentials differ; "
+            f"{same} of {len(want.props)} property arrays bit-equal")
+
+
+def mesh_counters(np, tele: dict, n: int) -> str:
+    """The collectives by stage and kind, checked as
+    tests/test_torch_collective_audit.py checks them."""
+    parts = []
+    for k in sorted(k for k in tele if k.startswith("coll_bytes::")):
+        key = k[len("coll_bytes::"):]
+        ops = tele["coll_ops::" + key]
+        if key.endswith("::reshard"):
+            if tele[k] >= 24 * 4 * n:
+                raise AssertionError(f"mesh deal {key}: {tele[k]} bytes")
+        elif tele[k] / max(ops, 1) >= 4 * n:
+            raise AssertionError(f"mesh collective {key}: "
+                                 f"{tele[k] / ops:.0f} bytes a call")
+        parts.append(f"{key} {ops} ops {tele[k]} B")
+    return "; ".join(parts)
+
+
+def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
+              report) -> None:
+    """Phase 10: the mesh path on the card (MESH_SHARDS shards on one
+    card, and a mesh over every card when there are several)."""
+    from velociraptor_stf_tpu_torch.io.synthetic import (G_KMS,
+                                                         make_cosmo_mock,
+                                                         planted_subhalos)
+    from velociraptor_stf_tpu_torch.models import localfield
+    from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+    from velociraptor_stf_tpu_torch.parallel import distributed_localfield
+    from velociraptor_stf_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from velociraptor_stf_tpu_torch.utils import telemetry
+
+    from velociraptor_stf_tpu_torch.ops import segments
+
+    # why the shards' group sums equal one device's: a segment reduced
+    # from an aligned start (ops/segments.py) is a function of its own
+    # values, wherever it lies; torch.segment_reduce on a card is not
+    v = torch.rand(100_000, generator=torch.Generator().manual_seed(0),
+                   dtype=torch.float32).to(dev)
+    raw, aligned = set(), set()
+    for pad in range(8):
+        vp = torch.cat([torch.zeros(pad, device=dev), v])
+        ids = (torch.arange(vp.shape[0], device=dev) >= pad).long()
+        raw.add(float(torch.segment_reduce(
+            vp, "sum", lengths=torch.bincount(ids, minlength=2),
+            unsafe=True)[1]))
+        aligned.add(float(segments.segment_sum(vp, ids, 2,
+                                               presorted=True)[1]))
+    log(f"phase 10 one 100,000-value segment at 8 offsets: "
+        f"torch.segment_reduce gives {len(raw)} float32 sums, "
+        f"ops/segments.py::segment_sum {len(aligned)}")
+    if len(aligned) != 1:
+        raise AssertionError("segment sums depend on the segment's offset")
+
+    card0 = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    meshes = [(f"{MESH_SHARDS} shards on {card0}",
+               Mesh((card0,) * MESH_SHARDS))]
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    else:
+        log("phase 10: the mesh over several cards was not run: "
+            f"{torch.cuda.device_count()} card(s) visible")
+    tmp = Path(tempfile.mkdtemp(prefix="vr_mesh_"))
+    try:
+        opt = slice_options(n, C, BOXSIZE, write_slice_config(
+            tmp / "slice.cfg"))
+        for label, mesh in meshes:
+            first = None
+            for rep in range(2):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                telemetry.reset()
+                t0 = time.perf_counter()
+                res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
+                                      mesh=mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(kernels.LAUNCHES)
+                tele = telemetry.snapshot()
+                check_catalog(np, res, len(pos), opt.HaloMinSize or
+                              opt.MinSize)
+                if first is None:
+                    first = res
+                elif not same_catalog(np, res, first):
+                    raise AssertionError(f"mesh ({label}): two runs on the "
+                                         "same input differ")
+                st = {k: round(res.timings[k], 4) for k in
+                      ("fof", "unbind", "properties", "so")}
+                log(f"phase 10 {label} run {rep} "
+                    f"({'warm-up' if rep == 0 else 'timed'}): ngroups "
+                    f"{res.ngroups} stages {json.dumps(st)} wall "
+                    f"{wall:.3f} s")
+            log(f"phase 10 {label} against phase 4: " + check_mesh_catalog(
+                np, res, want, pos, vel, mass, opt, f"mesh ({label})"))
+            for stage in ("fof3d", "fof6d"):
+                loads = [tele.get(f"mesh_slab_load::slabplan::shard{s}", 0)
+                         for s in range(mesh.size)]
+                cand = [tele.get(f"mesh_candidates::{stage}::shard{s}", 0)
+                        for s in range(mesh.size)]
+                log(f"phase 10 {label} {stage}: slab loads {loads}, "
+                    f"candidate pairs per shard {cand}, cross-slab rounds "
+                    f"{tele.get(stage + '_outer_rounds')}")
+            for stage in ("unbind", "props"):
+                loads = [tele.get(f"mesh_group_load::{stage}::shard{s}", 0)
+                         for s in range(mesh.size)]
+                log(f"phase 10 {label} {stage}: particles per shard {loads}")
+            log(f"phase 10 {label} collectives: " + mesh_counters(
+                np, tele, len(pos)))
+            log(f"phase 10 {label} launches {json.dumps(counts)} peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                "GiB; two runs equal bit for bit")
+            if counts["potential"] <= 0:
+                raise AssertionError("mesh path: the potential kernel was "
+                                     "not launched")
+            if first is not None and label == meshes[0][0]:
+                for e in report:
+                    e["launches_mesh"] = counts[e["name"]]
+            del res, first
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the hydro and substructure paths at 128^3, one card against the mesh
+    mesh = meshes[0][1]
+    sn = MESH_SMALL_N
+    spos, svel, smass = make_cosmo_mock(sn, boxsize=BOXSIZE,
+                                        nhalos=max(64, sn // 16384), seed=7)
+    tmp = Path(tempfile.mkdtemp(prefix="vr_mesh_"))
+    try:
+        ptype, extras = hydro_inputs(np, len(spos))
+        for what, o, kw in (
+                ("hydro", hydro_options(sn, C, tmp / "h.cfg"),
+                 dict(ptype=ptype, extras=extras)),
+                ("substructure", sub_options(sn, C, tmp / "s.cfg"), {})):
+            t0 = time.perf_counter()
+            one = find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
+                                  device=dev, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
+                                  mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            msg = check_mesh_catalog(np, got, one, spos, svel, smass, o,
+                                     f"{what} path at n={sn}")
+            extra = ""
+            if what == "hydro":
+                bar = ptype != 1
+                extra = (f"; {int((got.pfof[bar] > 0).sum())} baryons "
+                         "associated, as on one device")
+            else:
+                extra = (f"; {int((got.parent[1:] > 0).sum())} "
+                         "substructures")
+            log(f"phase 10 {what} path at n={sn}: {msg}{extra}; one device "
+                f"{t1 - t0:.3f} s, mesh {t2 - t1:.3f} s")
+            if what == "substructure":
+                real = distributed_localfield.DIST_DENSITY_MIN
+                distributed_localfield.DIST_DENSITY_MIN = 1
+                try:
+                    t0 = time.perf_counter()
+                    dres = find_structures(o, spos, svel, smass,
+                                           boxsize=BOXSIZE, mesh=mesh)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                finally:
+                    distributed_localfield.DIST_DENSITY_MIN = real
+                hosts = [r.pfof * (r.parent[r.pfof] == 0)
+                         for r in (one, dres)]
+                if not np.array_equal(hosts[0], hosts[1]):
+                    raise AssertionError("sharded density: the field "
+                                         "structures differ")
+                agree = float(((dres.pfof > 0) == (one.pfof > 0)).mean())
+                nd = int((dres.parent[1:] > 0).sum())
+                log(f"phase 10 substructure path with the sharded density: "
+                    f"field structures equal; {nd} substructures (one device "
+                    f"{int((one.parent[1:] > 0).sum())}); tagged-state "
+                    f"agreement {agree:.5f}; {dt:.3f} s")
+            del one, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # three planted hosts with subhalos: the mesh against one card
+    ppos, pvel, pmass, _ = planted_subhalos(3, seed=3, offset=4.0)
+    pone = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
+                           boxsize=16.0, device=dev)
+    pgot = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
+                           boxsize=16.0, mesh=mesh)
+    nsub = int((pone.parent[1:] > 0).sum())
+    if nsub < 2:
+        raise AssertionError(f"planted subhalos: {nsub} substructures")
+    msg = check_mesh_catalog(np, pgot, pone, ppos, pvel, pmass,
+                             planted_options(C, G_KMS), "planted subhalos")
+    log(f"phase 10 planted subhalos: {msg}; {nsub} substructures")
+
+    # the sharded density against one device's, at the JAX test's
+    # statistics (tests/test_distributed.py:300-346), scaled up
+    rng = np.random.default_rng(77)
+    box = 10.0
+    nclump = DENSITY_N // 8
+    cpos = np.array([box / MESH_SHARDS, 5.0, 5.0]) + \
+        rng.normal(0, 0.15, (nclump, 3))
+    bpos = rng.random((DENSITY_N - nclump, 3)) * box
+    dpos = torch.from_numpy((np.concatenate([cpos, bpos]) % box).astype(
+        np.float32)).to(dev)
+    dvel = torch.from_numpy(np.concatenate([
+        rng.normal(0, 20.0, (nclump, 3)),
+        rng.normal(0, 300.0, (DENSITY_N - nclump, 3))]).astype(
+            np.float32)).to(dev)
+    t0 = time.perf_counter()
+    d1 = localfield.velocity_density(dpos, dvel).cpu().numpy()
+    t1 = time.perf_counter()
+    dm = distributed_localfield.distributed_velocity_density(
+        dpos, dvel, mesh, boxsize=box).cpu().numpy()
+    t2 = time.perf_counter()
+    logr = np.log(dm) - np.log(d1)
+    med = float(np.median(np.abs(logr)))
+    k = DENSITY_N // 20
+    overlap = len(set(np.argsort(-d1)[:k]) & set(np.argsort(-dm)[:k])) / k
+    ratio = float(np.median(dm[:nclump]) / np.median(dm[nclump:]))
+    if not ((dm > 0).all() and med < 0.2 and overlap > 0.9 and ratio > 10):
+        raise AssertionError(f"sharded density: median |log ratio| {med}, "
+                             f"top-5% overlap {overlap}, clump / "
+                             f"background {ratio}")
+    log(f"phase 10 sharded density at n={DENSITY_N}: median |log ratio| "
+        f"{med:.4f}, top-5% overlap {overlap:.4f}, clump / background "
+        f"{ratio:.1f}; one device {t1 - t0:.3f} s, mesh {t2 - t1:.3f} s")
+
+
 def span_table(torch, targets, run, title: str, plain_ms: float,
                path: str) -> None:
     """A table of synchronised spans of one ``run()``: each of ``targets``
@@ -1802,6 +2121,7 @@ def main() -> int:
     for e in report:
         e["launches"] = counts[e["name"]]
 
+    main_cat = res
     t0 = time.perf_counter()
     ng = check_properties(np, res, pos, mass, BOXSIZE)
     worst = plummer_case(torch, np, dev, oracles)
@@ -1836,6 +2156,12 @@ def main() -> int:
     for e in report:
         e["launches_subsub"] = sub_counts[e["name"]]
     log(f"phase 9 substructure path: ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n, main_cat,
+              report)
+    del main_cat
+    log(f"phase 10 mesh path: ok in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
         try:

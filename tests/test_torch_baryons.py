@@ -29,6 +29,7 @@ from velociraptor_stf_tpu.utils import config as C
 from velociraptor_stf_tpu_torch import cli as tcli
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import baryons as TB
+from velociraptor_stf_tpu_torch.parallel.mesh import make_mesh
 from velociraptor_stf_tpu_torch.models import pipeline as TP
 from velociraptor_stf_tpu_torch.ops import fof as TF
 from velociraptor_stf_tpu_torch.utils import telemetry
@@ -233,10 +234,14 @@ def test_search_baryons_without_tagged_dm_and_mesh():
     none = TB.search_baryons(convert.options(opt), _t(pos_dm), _t(vel_dm),
                              _t(pfof_dm).long(), _t(pos_b[:0]), _t(vel_b[:0]))
     assert none.shape == (0,)
-    with pytest.raises(NotImplementedError):
-        TB.search_baryons(convert.options(opt), _t(pos_dm), _t(vel_dm),
-                          _t(pfof_dm).long(), _t(pos_b), _t(vel_b),
-                          mesh=object())
+    # over a mesh of CPU shards: the assignment of one device
+    opt.ellphys = 1.0
+    args = (convert.options(opt), _t(pos_dm), _t(vel_dm),
+            _t(pfof_dm).long(), _t(pos_b), _t(vel_b))
+    one = TB.search_baryons(*args, boxsize=10.0, vscale2=1e6)
+    assert one.any()
+    assert torch.equal(TB.search_baryons(*args, boxsize=10.0, vscale2=1e6,
+                                         mesh=make_mesh(2, "cpu")), one)
 
 
 def test_search_baryons_halo_across_box_face():

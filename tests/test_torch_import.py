@@ -130,6 +130,57 @@ def test_import_scan_covers_substructure_modules():
         "models/substructure", "models/haloprops", "io/cache")} <= files
 
 
+def test_import_scan_covers_mesh_modules():
+    """The ast scan reads every module of the multi-device mode."""
+    files = {f.relative_to(REPO).as_posix()
+             for f in (REPO / "velociraptor_stf_tpu_torch").rglob("*.py")}
+    assert {f"velociraptor_stf_tpu_torch/{m}.py" for m in (
+        "parallel/__init__", "parallel/mesh", "parallel/collectives",
+        "parallel/grouppack", "parallel/distributed_fof",
+        "parallel/distributed_unbind", "parallel/distributed_props",
+        "parallel/distributed_so", "parallel/distributed_localfield",
+        "parallel/distributed_substructure", "parallel/distributed_baryons",
+        "utils/transfer")} <= files
+
+
+def test_port_runs_mesh_without_jax():
+    """Every module of parallel/ imported, and find_structures over a
+    mesh of four CPU shards (recursion and baryon search on) equal to the
+    run without a mesh, with jax never imported."""
+    code = """
+import importlib, pkgutil, sys
+import numpy as np
+import velociraptor_stf_tpu_torch.parallel as par
+for m in pkgutil.iter_modules(par.__path__):
+    importlib.import_module("velociraptor_stf_tpu_torch.parallel." + m.name)
+import velociraptor_stf_tpu_torch.utils.transfer
+from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
+from velociraptor_stf_tpu_torch.models.pipeline import find_structures
+from velociraptor_stf_tpu_torch.parallel.mesh import make_mesh
+from velociraptor_stf_tpu_torch.utils import config as C
+box, n = 30.0, 1 << 13
+pos, vel, mass = make_cosmo_mock(n, boxsize=box, nhalos=8, seed=4)
+ptype = np.where(np.arange(n) % 6 == 5, C.GASTYPE, C.DARKTYPE)
+opt = C.Options()
+opt.ellphys, opt.ellxscale, opt.fofbgtype = 0.2, box / n ** (1 / 3), C.FOF6D
+opt.MinSize, opt.HaloMinSize, opt.G = 20, 32, 43.0211349
+opt.uinfo.unbindflag, opt.iBoundHalos, opt.iSubSearch = 1, 1, 1
+opt.iBaryonSearch, opt.partsearchtype = 1, C.PSTALL
+C.config_check(opt)
+one = find_structures(opt, pos, vel, mass, boxsize=box, ptype=ptype,
+                      device="cpu")
+four = find_structures(opt, pos, vel, mass, boxsize=box, ptype=ptype,
+                       mesh=make_mesh(4, "cpu"))
+assert four.ngroups == one.ngroups > 0
+assert (four.pfof == one.pfof).all()
+""" + NO_JAX_PACKAGE + """
+print("OK", one.ngroups)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_port_runs_substructure_without_jax():
     """find_structures with iSubSearch = 1 and the merger-core search on
     planted subhalos, with jax never imported."""

@@ -324,9 +324,10 @@ def test_potential_spans_cover_needed_pairs(rows):
 
 @pytest.mark.parametrize("chunks", ["whole", "one tile"])
 def test_potential_work_items_tile_spans(monkeypatch, chunks):
-    """The work items cut each row block's span into chunks of whole tiles,
-    in order, without gap or overlap; an empty span keeps one empty item.
-    At the real sizes this case's spans are under one chunk each."""
+    """The work items cut each row block's span, widened down to a
+    multiple of the tile, into chunks of whole tiles, in order, without
+    gap or overlap; an empty span keeps one empty item.  At the real sizes
+    this case's spans are under one chunk each."""
     if chunks == "one tile":
         monkeypatch.setattr(KP, "MIN_CHUNK", KP.TILE)
     pos, mass, g, offsets = KP.edge_case()
@@ -340,8 +341,9 @@ def test_potential_work_items_tile_spans(monkeypatch, chunks):
     for b in range(sp.shape[0]):
         its = items[int(first[b]):int(first[b + 1])].long()
         assert (its[:, 0] == b).all() and (its[:, 3] == 0).all()
-        assert int(its[0, 1]) == int(sp[b, 0]) and \
-            int(its[-1, 2]) == int(sp[b, 1])
+        assert int(its[0, 1]) == int(sp[b, 0]) - int(sp[b, 0]) % KP.TILE \
+            and int(its[-1, 2]) == int(sp[b, 1])
+        assert (its[:, 1] % KP.TILE == 0).all()
         assert torch.equal(its[1:, 1], its[:-1, 2])
         assert ((its[:-1, 2] - its[:-1, 1]) % KP.TILE == 0).all()
         split |= its.shape[0] > 1

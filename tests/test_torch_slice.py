@@ -146,24 +146,50 @@ def test_slice_keepfof_envelopes():
 
 @pytest.mark.parametrize("what", ["mesh", "baryon-mesh"])
 def test_unported_modes_raise(what):
-    """Both entry points refuse a device mesh, not ported yet, and so does
-    the baryon association."""
-    pos = np.zeros((8, 3), np.float32)
-    opt = _bench_opts(10.0, 8)
-    kw = {"mesh": object()}
+    """Both entry points and the baryon association on a tiny mesh of two
+    CPU shards give the result of the call without a mesh; the one mode
+    left unported, 3DFOF envelopes (iKeepFOF) with a baryon search,
+    still raises, with a mesh too."""
+    from velociraptor_stf_tpu_torch.parallel.mesh import make_mesh
+
+    boxsize, n = 25.0, 1 << 13
+    pos, vel, mass = make_cosmo_mock(n, boxsize=boxsize, nhalos=6, seed=7)
+    mesh = make_mesh(2, "cpu")
     if what == "baryon-mesh":
         from velociraptor_stf_tpu_torch.models.baryons import search_baryons
 
-        t = torch.zeros(8, 3)
+        opt = _port_opts(boxsize, n)
+        dm = np.arange(n) % 6 != 5
+        one = search_and_unbind(opt, pos[dm], vel[dm], mass[dm],
+                                boxsize=boxsize, device="cpu")
+        args = (opt, torch.from_numpy(pos[dm]), torch.from_numpy(vel[dm]),
+                one.pfof, torch.from_numpy(pos[~dm]),
+                torch.from_numpy(vel[~dm]))
+        want = search_baryons(*args, boxsize=boxsize)
+        assert want.any()
+        assert torch.equal(search_baryons(*args, boxsize=boxsize,
+                                          mesh=mesh), want)
+        ptype = np.where(dm, 1, 0).astype(np.int32)
         with pytest.raises(NotImplementedError):
-            search_baryons(convert.options(opt), t, t,
-                           torch.ones(8, dtype=torch.int64), t, t, **kw)
+            search_and_unbind(_port_opts(boxsize, n, iKeepFOF=1,
+                                         iBaryonSearch=1,
+                                         partsearchtype=C.PSTALL),
+                              pos, vel, mass, boxsize=boxsize, ptype=ptype,
+                              mesh=mesh)
         return
-    args = (convert.options(opt), pos, pos, np.ones(8, np.float32))
-    with pytest.raises(NotImplementedError):
-        search_and_unbind(*args, boxsize=10.0, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        find_structures(*args, boxsize=10.0, device="cpu", **kw)
+    opt = _port_opts(boxsize, n)
+    want = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize,
+                             device="cpu")
+    got = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize, mesh=mesh)
+    assert got.ngroups == want.ngroups > 0
+    assert torch.equal(got.pfof, want.pfof)
+    assert torch.equal(got.W, want.W)
+    cat1 = find_structures(opt, pos, vel, mass, boxsize=boxsize,
+                           device="cpu")
+    cat2 = find_structures(opt, pos, vel, mass, boxsize=boxsize, mesh=mesh)
+    np.testing.assert_array_equal(cat2.pfof, cat1.pfof)
+    np.testing.assert_allclose(cat2.props["gmass"], cat1.props["gmass"],
+                               rtol=1e-6)
 
 
 def test_non_periodic_box_matches_reference():

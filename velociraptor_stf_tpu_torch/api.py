@@ -10,10 +10,10 @@ the caller's order), ``SetVelociraptorSimulationState``:206
 
 A simulation running on the same GPU hands its tensors over as they are --
 no host round trip -- which replaces the reference's zero-copy
-``swift_vel_part`` conversion.  The search runs on the one device named by
+``swift_vel_part`` conversion.  The search runs on the device named by
 ``device`` (default ``"cuda"``, which needs a card: nothing falls back to
-the CPU); a multi-device mesh is not ported and raises the pipeline's
-``NotImplementedError``.
+the CPU), sharded over a mesh in a periodic box when the CLI's
+``_auto_mesh`` gives one (several cards, or ``VR_MESH``).
 """
 
 from __future__ import annotations
@@ -134,9 +134,15 @@ class VelociraptorSession:
         # ids and types are read on the host only: by the mode checks and
         # the catalog writers
         pids, ptype = _host(pids), _host(ptype)
+        # sharded when the CLI would be (``cli._auto_mesh``), in a
+        # periodic box
+        from .cli import _auto_mesh
+
         res = pipeline.find_structures(opt, pos, vel, mass, boxsize=boxsize,
                                        ptype=ptype, extras=extras,
-                                       device=device)
+                                       device=device,
+                                       mesh=_auto_mesh(device) if boxsize
+                                       else None)
         out = {
             "group_id": res.pfof,
             "ngroups": res.ngroups,

@@ -8,7 +8,11 @@ The same flags and config checks as the reference (reference ``main()`` /
 ``GetArgs``, main.cxx:20, ui.cxx:9); the search runs on ``--device``
 (default ``cuda``, which needs a card: the run never falls back to the CPU)
 and the catalogs go through the port's writers (``io/writers.py``).
-A multi-device mesh and the jax profiler trace are not ported.
+The run is sharded over a mesh (``parallel/``) as ``_auto_mesh`` decides:
+on ``cuda`` over every visible card when there are several, ``VR_MESH=N``
+taking the first N (0 or 1: one device); on ``--device cpu`` over
+``VR_MESH=N`` CPU shards, and on one device without it.  The jax profiler
+trace is not ported.
 """
 
 from __future__ import annotations
@@ -212,14 +216,36 @@ def _bound_order(opt: C.Options, res: pipeline.CatalogResult, vel, mass,
     return order, id_mbp, id_minpot, coords
 
 
+def _auto_mesh(device="cuda"):
+    """The mesh of a run (the analog of launching the reference under
+    mpirun, main.cxx:33), or None for one device: on ``cuda`` every
+    visible card when there are more than one; on the CPU none.
+    ``VR_MESH=N`` overrides: the first N cards, or N CPU shards; 0 or 1
+    means one device."""
+    from .parallel.mesh import make_mesh
+
+    kind = torch.device(device).type
+    want = os.environ.get("VR_MESH")
+    if kind == "cuda":
+        ndev = torch.cuda.device_count()
+        if want is not None:
+            ndev = min(int(want), ndev)
+    else:
+        ndev = 0 if want is None else int(want)
+    return make_mesh(ndev, kind) if ndev > 1 else None
+
+
 def run(opt: C.Options, device="cuda") -> pipeline.CatalogResult:
     """Read, search, write (reference main())."""
     timer = PhaseTimer(verbose=opt.iverbose)
     with timer.phase("read"):
         pos, vel, pids, ptype, mass, boxsize, extras = read_snapshot(opt)
+    mesh = _auto_mesh(device)
+    if mesh is not None and opt.iverbose:
+        print(f"Running sharded over {mesh.size} shards")
     res = pipeline.find_structures(opt, pos, vel, mass, boxsize=boxsize,
                                    ptype=ptype, extras=extras,
-                                   device=device)
+                                   device=device, mesh=mesh)
     for k, v in res.timings.items():
         timer.record(k, v)
 

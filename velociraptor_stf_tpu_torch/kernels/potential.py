@@ -9,10 +9,18 @@ Each row i comes with its group's slot range ``windows[i] = [start, end)``,
 
 Launch geometry (built here, so the tests can check it): a block of
 ``THREADS`` threads holds ``ROWS_PER_THREAD`` consecutive rows per thread;
-a row block's columns are the union of its rows' ranges (``spans``), cut
-into chunks of whole tiles (``work_items``), one thread block per chunk;
-each thread scans only the union of its own rows' ranges.  A second pass
-adds a row's chunk sums in chunk order.
+a row block's columns are the union of its rows' ranges (``spans``),
+widened down to a multiple of ``TILE`` and cut into chunks of whole tiles
+(``work_items``), one thread block per chunk; each thread scans only the
+union of its own rows' ranges.  A second pass adds a row's chunk sums in
+chunk order.
+
+Summation order: a row's float32 partial sums run over the tiles
+[k TILE, (k + 1) TILE) of absolute column index, in both the kernel and
+the plain version, so a row's result depends only on its group's slots
+modulo ``TILE``: a group laid out at the same offset modulo ``TILE`` gets
+the same bits in another array (the mesh unbind's shard blocks,
+``parallel/distributed_unbind.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ def work_items(windows: torch.Tensor):
     ``items[first[b]:first[b + 1]]``.  A block with an empty span has one
     empty item, so every row is written."""
     sp = spans(windows, ROWS_PER_BLOCK)
+    sp[:, 0] -= sp[:, 0] % TILE         # tiles at absolute multiples
     length = sp[:, 1] - sp[:, 0]
     total = int(length.sum())
     chunk = max(MIN_CHUNK, -(-total // (TARGET_ITEMS * TILE)) * TILE)
@@ -112,20 +121,27 @@ def edge_case(seed: int = 5):
 def potential_ref(pos: torch.Tensor, mass: torch.Tensor, gid: torch.Tensor,
                   windows: torch.Tensor, eps2: float,
                   blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: f32 terms, summed in f32 over column tiles and the
+    """Plain version: f32 terms, summed in f32 over the kernel's column
+    tiles (``TILE`` columns at absolute multiples of ``TILE``) and the
     tiles in f64, over the spans of ``R_BLOCK``-row blocks (rows outside
     ``blocks``, indices of such blocks, stay 0)."""
     ns = pos.shape[1]
     s = spans(windows, R_BLOCK)
-    win = torch.stack([s[:, 0], s[:, 1] - s[:, 0]], 1)[:, None, :]
+    lo = s[:, 0] - s[:, 0] % TILE
+    win = torch.stack([lo, torch.where(s[:, 1] > s[:, 0], s[:, 1] - lo, 0)],
+                      1)[:, None, :]
     acc = torch.zeros(ns, dtype=torch.float64, device=pos.device)
-    for rows, rvalid, cols, cvalid in window_tiles(win, ns, blocks):
+    for rows, rvalid, cols, cvalid in window_tiles(win, ns, blocks,
+                                                   cols_per_tile=TILE):
         g = gid[rows][:, :, None]
         hit = ((g == gid[cols][:, None, :]) & (g > 0) &
                (rows[:, :, None] != cols[:, None, :]) & cvalid[:, None, :])
         term = mass[cols][:, None, :] * torch.rsqrt(
             pair_d2(pos, rows, cols) + eps2)
-        part = torch.where(hit, term, 0.0).sum(-1)
+        term = torch.where(hit, term, 0.0)
+        # a short last tile is summed at full width, as every other tile
+        part = torch.nn.functional.pad(
+            term, (0, TILE - term.shape[-1])).sum(-1)
         acc[rows[rvalid]] += part[rvalid].double()
     return acc.float()
 

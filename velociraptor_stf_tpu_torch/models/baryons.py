@@ -78,9 +78,9 @@ def search_baryons(opt: C.Options, pos_dm: torch.Tensor,
     Linking length: ``ellphys * ellxscale * ellhalophysfac``; velocity
     scale^2: ``vscale2`` (``opt.HaloVelDispScale`` when set, else the
     tagged DM's dispersion) times ``ellhalovelfac``^2.  The pairs the
-    pass enumerated are counted as ``baryon_pairs`` (utils/telemetry)."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+    pass enumerated are counted as ``baryon_pairs`` (utils/telemetry).
+    With ``mesh`` and a periodic box each shard assigns the baryons of
+    its slab (``parallel/distributed_baryons.py``)."""
     nb = pos_b.shape[0]
     ellx = opt.ellphys * opt.ellxscale * opt.ellhalophysfac
     if vscale2 is None:
@@ -91,11 +91,18 @@ def search_baryons(opt: C.Options, pos_dm: torch.Tensor,
     didx = torch.nonzero(pfof_dm > 0).squeeze(1)
     if didx.shape[0] == 0 or nb == 0:
         return torch.zeros(nb, dtype=torch.int32, device=pos_b.device)
+    metric = PhaseMetric(float(ellx * ellx), float(ellv2))
+    if mesh is not None and boxsize:
+        from ..parallel.distributed_baryons import distributed_baryon_assign
+
+        return distributed_baryon_assign(
+            pos_dm[didx], vel_dm[didx], pfof_dm[didx], pos_b, vel_b,
+            float(ellx), mesh, float(boxsize), metric)
     # every row is a baryon and every column DM: 0-d fields
     one = torch.ones((), dtype=torch.int32, device=pos_b.device)
     grp, _, pairs = fof.nearest_assign_points(
         pos_b, {"vel": vel_b, "isb": one}, pos_dm[didx],
         {"vel": vel_dm[didx], "isb": one * 0}, pfof_dm[didx], ellx, boxsize,
-        PhaseMetric(float(ellx * ellx), float(ellv2)))
+        metric)
     telemetry.count("baryon_pairs", pairs)
     return grp

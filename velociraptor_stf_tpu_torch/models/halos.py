@@ -14,7 +14,7 @@ capacity can overflow and no edge-pipeline fallback exists.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +36,53 @@ class FieldSearchResult:
     parent3d: Optional[torch.Tensor] = None
 
 
+def _group_sums(values: torch.Tensor, pfof: torch.Tensor,
+                ng1: int) -> torch.Tensor:
+    """Per-group float64 sums; for one group (``ng1`` 2, ids 0 / 1) a
+    masked sum, which needs no sort (row 0 is then left 0)."""
+    if ng1 == 2:
+        one = (pfof == 1).to(values.dtype)
+        one = one[:, None] if values.dim() > 1 else one
+        return torch.stack([torch.zeros_like(values[0]),
+                            (values * one).sum(0)])
+    return segments.segment_sum(values, pfof, ng1)
+
+
+def group_moments(vel: torch.Tensor, w: torch.Tensor, pfof: torch.Tensor,
+                  ng1: int) -> torch.Tensor:
+    """(ng1, 4) float64 per-group sums of [w, w vx, w vy, w vz] (the
+    products rounded in float32).  Float64 sums hardly depend on how the
+    particles are split: a mesh adds its shards' partial sums
+    (``parallel/distributed_fof.py``) to what one device gets, and the
+    float32 results agree."""
+    return _group_sums(torch.stack(
+        [w, w * vel[:, 0], w * vel[:, 1], w * vel[:, 2]], 1).double(),
+        pfof, ng1)
+
+
+def group_spread(vel: torch.Tensor, w: torch.Tensor, pfof: torch.Tensor,
+                 vmean: torch.Tensor, ng1: int) -> torch.Tensor:
+    """(ng1,) float64 per-group sums of w |v - vmean[g]|^2 (the squared
+    deviation rounded in float32)."""
+    return _group_sums(
+        w.double() * segments.sq3(vel - vmean[pfof]).double(), pfof, ng1)
+
+
+def mean_from_moments(tot: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(msum float64, vmean float32) from ``group_moments``."""
+    msum = torch.clamp_min(tot[:, 0], 1e-30)
+    return msum, (tot[:, 1:] / msum[:, None]).float()
+
+
+def group_dispersion2(vel: torch.Tensor, mass: torch.Tensor,
+                      pfof: torch.Tensor, ng1: int) -> torch.Tensor:
+    """(ng1,) float32 mass-weighted velocity dispersion^2 of every group
+    about its mass-weighted mean velocity, summed in float64."""
+    msum, vmean = mean_from_moments(group_moments(vel, mass, pfof, ng1))
+    return (group_spread(vel, mass, pfof, vmean, ng1) / msum).float()
+
+
 def velocity_scale_largest_group(vel: torch.Tensor, mass: torch.Tensor,
                                  pfof: torch.Tensor, num_segments: int,
                                  ellhalo6dvfac: float,
@@ -44,19 +91,19 @@ def velocity_scale_largest_group(vel: torch.Tensor, mass: torch.Tensor,
     ellhalo6dvfac^2, as a 0-d tensor.  ``bug_compat`` reproduces the
     reference's stray-statement mass sum (search.cxx:450): the mass of the
     particle one past group 1 in sorted order."""
+    if not bug_compat:
+        return group_dispersion2(vel, mass, (pfof == 1).long(), 2)[1] * \
+            ellhalo6dvfac ** 2
     sel = pfof == 1
     w = torch.where(sel, mass, 0.0)
     sv = (vel * w[:, None]).sum(0)
-    if bug_compat:
-        n = pfof.shape[0]
-        ari = torch.arange(n, device=pfof.device)
-        cand2 = int(torch.where(pfof == 2, ari, n).min())
-        cand0 = int(torch.where(pfof == 0, ari, n).min())
-        cand_last = int(torch.where(sel, ari, -1).max())
-        idx = cand2 if cand2 < n else cand0 if cand0 < n else cand_last
-        mtot = torch.clamp_min(mass[min(max(idx, 0), n - 1)], 1e-30)
-    else:
-        mtot = torch.clamp_min(w.sum(), 1e-30)
+    n = pfof.shape[0]
+    ari = torch.arange(n, device=pfof.device)
+    cand2 = int(torch.where(pfof == 2, ari, n).min())
+    cand0 = int(torch.where(pfof == 0, ari, n).min())
+    cand_last = int(torch.where(sel, ari, -1).max())
+    idx = cand2 if cand2 < n else cand0 if cand0 < n else cand_last
+    mtot = torch.clamp_min(mass[min(max(idx, 0), n - 1)], 1e-30)
     vmean = sv / mtot
     dv2 = ((vel - vmean) ** 2).sum(-1)
     return (dv2 * w).sum() / mtot * ellhalo6dvfac ** 2
@@ -67,26 +114,43 @@ def velocity_scale_per_group(vel: torch.Tensor, mass: torch.Tensor,
                              ellhalo6dvfac: float) -> torch.Tensor:
     """(num_segments,) per-group mass-weighted velocity dispersion^2 times
     ellhalo6dvfac^2 (FOF6DADAPTIVE)."""
-    vmean = segments.segment_mean(vel, mass, pfof, num_segments)
-    dv2 = ((vel - vmean[pfof]) ** 2).sum(-1)
-    return segments.segment_mean(dv2, mass, pfof, num_segments) * \
+    return group_dispersion2(vel, mass, pfof, num_segments) * \
         ellhalo6dvfac ** 2
+
+
+def scale_groups(opt: C.Options, pfof3: torch.Tensor, ng3: int
+                 ) -> Tuple[torch.Tensor, int]:
+    """(labels, ng1): the groups whose dispersions the 6D scale needs,
+    group 1 alone (FOF6D, labels 0 / 1) or every 3DFOF group."""
+    if opt.fofbgtype == C.FOF6D and not opt.iKeepFOF:
+        return (pfof3 == 1).long(), 2
+    return pfof3, ng3 + 1
+
+
+def scales_per_particle(opt: C.Options, sig2: torch.Tensor,
+                        pfof3: torch.Tensor) -> torch.Tensor:
+    """Per-particle 6D velocity scale from the (ng3+1,) dispersions^2
+    ``sig2``: group 1's for all (FOF6D), or each group's own
+    (FOF6DADAPTIVE, and iKeepFOF); 1 for untagged particles."""
+    fac2 = opt.ellhalo6dvfac ** 2
+    if opt.fofbgtype == C.FOF6D and not opt.iKeepFOF:
+        return torch.where(pfof3 > 0, sig2[1] * fac2, 1.0)
+    return torch.where(pfof3 > 0, torch.clamp_min(sig2[pfof3] * fac2, 1e-30),
+                       1.0)
 
 
 def velocity_scales(opt: C.Options, vel: torch.Tensor, mass: torch.Tensor,
                     pfof3: torch.Tensor, ng3: int) -> torch.Tensor:
-    """Per-particle 6D velocity scale: one scale from the largest group
-    (FOF6D) or each group's own (FOF6DADAPTIVE, and iKeepFOF); 1 for
-    untagged particles."""
-    if opt.fofbgtype == C.FOF6D and not opt.iKeepFOF:
-        vs = velocity_scale_largest_group(
-            vel, mass, pfof3, ng3 + 1, opt.ellhalo6dvfac,
-            bug_compat=bool(opt.iVscaleReferenceBugCompat))
+    """Per-particle 6D velocity scale (``scales_per_particle``);
+    ``iVscaleReferenceBugCompat`` takes the reference's stray mass sum."""
+    if opt.fofbgtype == C.FOF6D and not opt.iKeepFOF and \
+            opt.iVscaleReferenceBugCompat:
+        vs = velocity_scale_largest_group(vel, mass, pfof3, ng3 + 1,
+                                          opt.ellhalo6dvfac, bug_compat=True)
         return torch.where(pfof3 > 0, vs, 1.0)
-    vs_group = velocity_scale_per_group(vel, mass, pfof3, ng3 + 1,
-                                        opt.ellhalo6dvfac)
-    return torch.where(pfof3 > 0, torch.clamp_min(vs_group[pfof3], 1e-30),
-                       1.0)
+    g, ng1 = scale_groups(opt, pfof3, ng3)
+    return scales_per_particle(opt, group_dispersion2(vel, mass, g, ng1),
+                               pfof3)
 
 
 def search_full_set(opt: C.Options, pos: torch.Tensor, vel: torch.Tensor,
@@ -114,6 +178,40 @@ def search_full_set(opt: C.Options, pos: torch.Tensor, vel: torch.Tensor,
     fof6 = fof3.subset(pfof3 > 0)
     del fof3
     pfof6, ng6 = fof6.fof6d(b3d * opt.ellhalo6dxfac, pfof3, vs, minsize)
+    return finish_6d(opt, pfof3, ng3, pfof6, ng6, vs)
+
+
+def search_full_set_sharded(opt: C.Options, pos: torch.Tensor,
+                            vel: torch.Tensor, mass: torch.Tensor,
+                            boxsize: float, mesh) -> FieldSearchResult:
+    """``search_full_set`` over a mesh of shards (whole arrays on
+    ``mesh.home``): the slab FOF with ghost exchange for the 3DFOF and
+    6DFOF labels (``parallel/distributed_fof.py``), the velocity scales
+    from the shards' partial sums; the same criteria, ids and iKeepFOF
+    envelopes.  ``iVscaleReferenceBugCompat``'s stray mass depends on one
+    particle, so that scale is computed on the home device."""
+    from ..parallel import distributed_fof as dfof
+
+    minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
+    b3d = opt.ellphys * opt.ellxscale * opt.ellhalophysfac
+    run6d = opt.fofbgtype in (C.FOF6D, C.FOF6DADAPTIVE)
+    # one plan serves both passes: cells span the larger linking length
+    reach = b3d * max(1.0, opt.ellhalo6dxfac if run6d else 1.0)
+    plan = dfof.SlabPlan(pos, reach, float(boxsize), mesh)
+    pfof3, ng3 = dfof.distributed_fof3d(pos, b3d, float(boxsize), mesh,
+                                        min_size=minsize, plan=plan)
+    if not (run6d and ng3 > 0):
+        return FieldSearchResult(pfof=pfof3, ngroups=ng3)
+    if opt.fofbgtype == C.FOF6D and not opt.iKeepFOF and \
+            opt.iVscaleReferenceBugCompat:
+        vs = velocity_scales(opt, vel, mass, pfof3, ng3)
+    else:
+        g, ng1 = scale_groups(opt, pfof3, ng3)
+        vs = scales_per_particle(opt, dfof.velocity_scales_sharded(
+            plan, vel, mass, g, ng1 - 1), pfof3)
+    pfof6, ng6 = dfof.distributed_fof3d(
+        pos, b3d * opt.ellhalo6dxfac, float(boxsize), mesh,
+        min_size=minsize, vel=vel, vscale2=vs, group=pfof3, plan=plan)
     return finish_6d(opt, pfof3, ng3, pfof6, ng6, vs)
 
 

@@ -32,25 +32,29 @@ _BLOCK = 1 << 27     # elements of one chunk's leaf-to-leaf distance block
 
 
 def _leaf_densities(P, V, valid, cm, nvel: int, nsearch: int, m: int,
-                    chunk: int, exact: bool, cand_out=None) -> torch.Tensor:
+                    chunk: int, exact: bool, cand_out=None,
+                    pool=None) -> torch.Tensor:
     """(L, K) SPH velocity densities of the (L, K, 3) leaf particles ``P``
     / ``V`` (validity (L, K), selection centres (L, 3), empty leaves parked
-    far away) against the same leaves as candidate pool.  ``cand_out``:
+    far away) against the same leaves as candidate pool, or against
+    ``pool`` = (P, V, valid, cm) of other leaves (a shard's own and its
+    neighbours', ``parallel/distributed_localfield.py``).  ``cand_out``:
     an (L, m) int64 tensor to receive each leaf's candidate leaves."""
     nleaf, leaf_size = P.shape[0], P.shape[1]
+    Pp, Vp, validp, cmp_ = (P, V, valid, cm) if pool is None else pool
     out = torch.empty(nleaf, leaf_size, dtype=P.dtype, device=P.device)
     for s in range(0, nleaf, chunk):
         l = torch.arange(s, min(s + chunk, nleaf), device=P.device)
         B = l.shape[0]
         c = cm[l]                                               # (B, 3)
-        d2leaf = seg.sq3(c[:, None, :] - cm[None, :, :])        # (B, L)
+        d2leaf = seg.sq3(c[:, None, :] - cmp_[None, :, :])      # (B, L)
         cand_l = seg.smallest_k(d2leaf, m)                      # (B, M)
         del d2leaf
         if cand_out is not None:
             cand_out[l] = cand_l
-        cand_pos = P[cand_l].reshape(B, m * leaf_size, 3)
-        cand_vel = V[cand_l].reshape(B, m * leaf_size, 3)
-        cand_valid = valid[cand_l].reshape(B, m * leaf_size)
+        cand_pos = Pp[cand_l].reshape(B, m * leaf_size, 3)
+        cand_vel = Vp[cand_l].reshape(B, m * leaf_size, 3)
+        cand_valid = validp[cand_l].reshape(B, m * leaf_size)
         if exact:
             d2p = seg.sq3(P[l][:, :, None, :] - cand_pos[:, None, :, :])
             d2p = torch.where(cand_valid[:, None, :], d2p, math.inf)

@@ -13,8 +13,15 @@ the field halos are unbound again once their substructures are carved out.
 Given particle types, both run the baryon association and the combined
 unbind after the dark-matter search ("baryons"), and ``find_structures``
 adds the per-type properties.  ``iSingleHalo`` takes the whole input as
-group 1.  A device mesh is not ported yet and raises
-``NotImplementedError``.
+group 1.
+
+With ``mesh`` (``parallel/mesh.py``) both run sharded over the mesh's
+shards: the slab FOF with ghost exchange, the whole-groups unbind, the
+sharded recursion and baryon association, the whole-groups property stage
+and the psum'd SO histograms (``parallel/``), and return the catalog of
+the single-device run.  Whole arrays then live on ``mesh.home``, and the
+host sees scalars, per-group tables and, once, the catalog's
+per-particle payloads (``utils/transfer.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..ops import so as so_ops
 from ..utils import config as C
 from ..utils import units
 from ..utils.timing import device_clock
+from ..utils.transfer import fetch_bulk
 
 
 @dataclass
@@ -78,6 +86,20 @@ def _scatter(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def _check_unbound(opt: C.Options, mesh, pos, vel, mass, pfof, ng: int,
+                   boxsize, min_size: int) -> unbind.UnbindResult:
+    """The unbind over the mesh's shards (whole groups per shard,
+    ``parallel/distributed_unbind.py``) or on one device."""
+    if mesh is not None:
+        from ..parallel.distributed_unbind import distributed_unbind
+
+        return distributed_unbind(pos, vel, mass, pfof, ng, opt.uinfo, opt.G,
+                                  mesh, boxsize=boxsize, min_size=min_size)
+    return unbind.check_unbound_groups(pos, vel, mass, pfof, ng, opt.uinfo,
+                                       opt.G, boxsize=boxsize,
+                                       min_size=min_size)
+
+
 def search_and_unbind(opt: C.Options, pos, vel, mass,
                       boxsize: Optional[float] = None,
                       device: Union[str, torch.device] = "cuda",
@@ -92,10 +114,11 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     group of their phase-space-nearest tagged DM particle and the groups
     are unbound once more with them (reference SearchBaryons,
     search.cxx:3053, main.cxx:397), timed as "baryons".  ``pfof3d`` is
-    then in the order of the dark matter subset, as in the reference."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
-    device = torch.device(device)
+    then in the order of the dark matter subset, as in the reference.
+    With ``mesh`` every stage runs over its shards, the inputs and
+    results on ``mesh.home`` (``device`` is then not read); the field
+    search shards a periodic box only, as in the JAX package."""
+    device = torch.device(device) if mesh is None else mesh.home
     clock = device_clock(device)
     timings: Dict[str, float] = {}
     units.calc_cosmo_params(opt, opt.a)
@@ -124,7 +147,12 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         ng, pfof3d, keepfof, parent3d = 1, None, 0, None
         timings["fof"] = clock() - t0
     else:
-        fres = halos.search_full_set(opt, spos, svel, smass, boxsize=boxsize)
+        if mesh is not None and boxsize:
+            fres = halos.search_full_set_sharded(opt, spos, svel, smass,
+                                                 boxsize, mesh)
+        else:
+            fres = halos.search_full_set(opt, spos, svel, smass,
+                                         boxsize=boxsize)
         pfof, ng = fres.pfof, fres.ngroups
         timings["fof"] = clock() - t0
         pfof3d = fres.pfof3d
@@ -149,9 +177,8 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     if opt.uinfo.unbindflag and ng > 0 and opt.iBoundHalos >= 1:
         t0 = clock()
         minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
-        ures = unbind.check_unbound_groups(spos, svel, smass, pfof, ng,
-                                           opt.uinfo, opt.G, boxsize=boxsize,
-                                           min_size=minsize)
+        ures = _check_unbound(opt, mesh, spos, svel, smass, pfof, ng,
+                              boxsize, minsize)
         pfof, ng, W = ures.pfof, ures.ngroups, ures.W
         gid_map = ures.gid_map
         timings["unbind"] = clock() - t0
@@ -161,20 +188,21 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         t0 = clock()
         pfof, ng, hostid, parent, level = substructure.search_sub_sub(
             opt, spos, svel, smass, pfof, ng, boxsize=boxsize,
-            timings=timings)
+            timings=timings, mesh=mesh)
         timings["substructure"] = clock() - t0
         if opt.iBoundHalos > 1 and opt.uinfo.unbindflag and ng > 0 and \
                 dmi is None:
             t0 = clock()
             pfof, ng, W, hostid, parent, level = _reunbind_halos(
                 opt, spos, svel, smass, pfof, ng, W, hostid, parent, level,
-                boxsize)
+                boxsize, mesh)
             timings["unbind"] = timings.get("unbind", 0.0) + clock() - t0
 
     if dmi is not None:
         t0 = clock()
         grp_b = baryons_mod.search_baryons(opt, spos, svel, pfof, pos[bi],
-                                           vel[bi], boxsize=boxsize)
+                                           vel[bi], boxsize=boxsize,
+                                           mesh=mesh)
         # DM and baryon labels spliced into full-set order
         pfof = _scatter(pfof, dmi, n)
         pfof[bi] = grp_b.long()
@@ -189,9 +217,8 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         # the groups are unbound again with their baryons (reference
         # search.cxx:3500+), down to MinSize, not HaloMinSize
         if opt.uinfo.unbindflag and ng > 0:
-            ures = unbind.check_unbound_groups(
-                pos, vel, mass, pfof, ng, opt.uinfo, opt.G, boxsize=boxsize,
-                min_size=opt.MinSize)
+            ures = _check_unbound(opt, mesh, pos, vel, mass, pfof, ng,
+                                  boxsize, opt.MinSize)
             pfof, W = ures.pfof, ures.W
             if parent is not None:
                 hostid, parent, level = _remap_hierarchy(
@@ -216,7 +243,7 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
 
 
 def _reunbind_halos(opt: C.Options, pos, vel, mass, pfof, ng: int, W,
-                    hostid, parent, level, boxsize):
+                    hostid, parent, level, boxsize, mesh=None):
     """``Bound_halos = 2``: the field halos, with their substructures
     carved out, are unbound again (reference search.cxx:2841); surviving
     halos become 1..ng_h by size, the substructures follow in their
@@ -225,9 +252,9 @@ def _reunbind_halos(opt: C.Options, pos, vel, mass, pfof, ng: int, W,
     is_halo = parent[:ng + 1] == 0
     halo_of_p = (pfof > 0) & torch.from_numpy(is_halo).to(dev)[pfof]
     minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
-    ures = unbind.check_unbound_groups(
-        pos, vel, mass, torch.where(halo_of_p, pfof, 0), ng, opt.uinfo,
-        opt.G, boxsize=boxsize, min_size=minsize)
+    ures = _check_unbound(opt, mesh, pos, vel, mass,
+                          torch.where(halo_of_p, pfof, 0), ng, boxsize,
+                          minsize)
     gm_h = ures.gid_map[:ng + 1]
     gm_np = gm_h.cpu().numpy()
     remap = np.zeros(ng + 1, np.int64)
@@ -353,8 +380,10 @@ def find_structures(opt: C.Options, pos, vel, mass,
     baryon search, the reference-frame choice and the per-type
     properties, which are computed when several types are present.
     Returns numpy arrays; with no group found, ``ngroups`` 0, ``pfof`` all
-    zero and one-row property arrays."""
-    device = torch.device(device)
+    zero and one-row property arrays.  With ``mesh`` the stages run over
+    its shards (``search_and_unbind``), the properties with whole groups
+    per shard and the all-particle SO from the shards' histograms."""
+    device = torch.device(device) if mesh is None else mesh.home
     clock = device_clock(device)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
     ptype = _as_ptype(ptype, device)
@@ -375,20 +404,28 @@ def find_structures(opt: C.Options, pos, vel, mass,
     # the property stage runs on the tagged particles, group by group;
     # with none tagged, on one untagged particle: row 0 alone
     t0 = clock()
-    sub = _tagged_by_group(pfof)
-    if sub.shape[0] == 0:
-        sub = torch.zeros(1, dtype=torch.int64, device=device)
     pertype = ptype is not None and int(torch.unique(ptype).shape[0]) > 1
-    hydro = {k: _as_f32(v, device)[sub] for k, v in (extras or {}).items()
+    hydro = {k: _as_f32(v, device) for k, v in (extras or {}).items()
              if k in props_mod.HYDRO_FIELDS and v is not None}
-    pr = props_mod.property_bundle(
-        opt, pos[sub], vel[sub], mass[sub], pfof[sub], ng,
-        W=None if W is None else W[sub],
-        ptype=None if ptype is None else ptype[sub], boxsize=boxsize,
-        pertype=pertype, **hydro)
+    if mesh is not None and ng > 0:
+        from ..parallel.distributed_props import distributed_properties
+
+        props_np = distributed_properties(
+            opt, pos, vel, mass, pfof, ng, mesh, W=W, ptype=ptype,
+            boxsize=boxsize, pertype=pertype, **hydro)
+    else:
+        sub = _tagged_by_group(pfof)
+        if sub.shape[0] == 0:
+            sub = torch.zeros(1, dtype=torch.int64, device=device)
+        pr = props_mod.property_bundle(
+            opt, pos[sub], vel[sub], mass[sub], pfof[sub], ng,
+            W=None if W is None else W[sub],
+            ptype=None if ptype is None else ptype[sub], boxsize=boxsize,
+            pertype=pertype, **{k: v[sub] for k, v in hydro.items()})
+        props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
+        del pr, sub
     timings["properties"] = clock() - t0
-    props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
-    del pr, sub, hydro
+    del hydro
 
     so_offsets = so_indices = None
     if opt.iInclusiveHalo > 0 and ng > 0:
@@ -396,14 +433,17 @@ def find_structures(opt: C.Options, pos, vel, mass,
         so_offsets, so_indices = _so_stage(
             opt, pos, vel, mass, props_np, ng, hostid, boxsize,
             pfof_fof=sres.pfof_fof, ng_fof=sres.ngroups_fof,
-            gid_map=gid_map)
+            gid_map=gid_map, mesh=mesh)
         timings["so"] = clock() - t0
 
+    # the catalog's per-particle payloads: the one time they leave the
+    # device(s)
     return CatalogResult(
-        pfof=pfof.to(torch.int32).cpu().numpy(), ngroups=ng,
-        props=props_np, W=None if W is None else W.cpu().numpy(),
+        pfof=fetch_bulk(pfof.to(torch.int32), "catalog_pfof"), ngroups=ng,
+        props=props_np,
+        W=None if W is None else fetch_bulk(W, "catalog_W"),
         pfof3d=None if sres.pfof3d is None else
-        sres.pfof3d.to(torch.int32).cpu().numpy(),
+        fetch_bulk(sres.pfof3d.to(torch.int32), "pfof3d"),
         timings=timings, hostid=hostid, parent=parent,
         hierarchy_level=level, so_offsets=so_offsets, so_indices=so_indices,
         stype=stype)
@@ -414,14 +454,16 @@ _SO_KEYS = ("gMvir", "gRvir", "gM200c", "gR200c", "gM200m", "gR200m",
 
 
 def _so_stage(opt: C.Options, pos, vel, mass, props_np, ng: int, hostid,
-              boxsize, *, pfof_fof=None, ng_fof: int = 0, gid_map=None):
+              boxsize, *, pfof_fof=None, ng_fof: int = 0, gid_map=None,
+              mesh=None):
     """Inclusive / all-particle spherical overdensities of the field halos
     (``Inclusive_halo_masses``, reference allvars.h:520): 1 and 2 take the
     SO of each halo's pre-unbind FOF particles (GetInclusiveMasses,
     substructureproperties.cxx:1946), 3 that of all particles in the
-    search sphere (GetSOMasses, :2731).  Member-only values stay as
-    ``*_excl``.  Returns the CSR SO particle lists when
-    ``Spherical_overdensity_halo_particle_list_output`` is set."""
+    search sphere (GetSOMasses, :2731), from the shards' histograms with a
+    ``mesh``.  Member-only values stay as ``*_excl``.  Returns the CSR SO
+    particle lists when ``Spherical_overdensity_halo_particle_list_output``
+    is set."""
     for k in _SO_KEYS + ("SO_mass", "SO_radius"):
         if k in props_np:
             props_np[k + "_excl"] = props_np[k]
@@ -453,9 +495,16 @@ def _so_stage(opt: C.Options, pos, vel, mass, props_np, ng: int, hostid,
             (opt.SphericalOverdensityMinHaloFac * num + 1).astype(np.int32),
             int(minsize * opt.SphericalOverdensityMinHaloFac + 1))
         mmin = float(mass.min())
-        M, R = so_ops.so_masses_all_particles(
-            pos, mass, centers, rsearch, lnthr, boxsize=boxsize,
-            minnum=minnum, first_mass=np.full(len(field_sel), mmin))
+        kw = dict(boxsize=boxsize, minnum=minnum,
+                  first_mass=np.full(len(field_sel), mmin))
+        if mesh is not None:
+            from ..parallel.distributed_so import distributed_so_masses
+
+            M, R = distributed_so_masses(pos, mass, centers, rsearch, lnthr,
+                                         mesh, **kw)
+        else:
+            M, R = so_ops.so_masses_all_particles(pos, mass, centers,
+                                                  rsearch, lnthr, **kw)
         for i, (mk, rk) in enumerate(key_of):
             props_np[mk][field_sel] = M[:, i]
             props_np[rk][field_sel] = R[:, i]

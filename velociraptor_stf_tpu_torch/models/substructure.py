@@ -31,8 +31,13 @@ unbind run on the structure's own rows; the padded bounds still set the
 cell grid, as they do in the reference.  Structures of one pad size share
 one batched context build and one outlier pass; the reference's vmapped
 subset batches are not carried over (the per-structure search gives the
-same ids).  The reference's environment switches and device mesh are not
-ported: a mesh raises ``NotImplementedError``.
+same ids).  The reference's environment switches are not ported.
+
+With a mesh (``parallel/``), the density is sharded as x-slabs once the
+active set reaches ``distributed_localfield.DIST_DENSITY_MIN`` particles
+(approximative mode only), and each level's structures are dealt whole to
+the shards for the subset and core searches
+(``parallel/distributed_substructure.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..ops import fof, segments as seg
 from ..utils import config as C
 from ..utils import telemetry
 from ..utils.timing import device_clock
+from ..parallel import distributed_localfield
 from . import bgfield, localfield, unbind as unbind_mod
 
 
@@ -897,12 +903,15 @@ def _rank_remap(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                                                     device=ids.device)
 
 
-def _global_density(opt: C.Options, pos, vel, act, spacing: float):
+def _global_density(opt: C.Options, pos, vel, act, spacing: float,
+                    mesh=None, boxsize: Optional[float] = None):
     """The velocity density of the ``act`` particles (those in structures
     of MINSUBSIZE members or more), computed once (reference
     search.cxx:214-240) on their compacted rows padded to a power of two
     with a lattice of isolated points, or replayed from ``opt.smname``
-    (reference Read/WriteLocalVelocityDensity, io.cxx:178-251).  Returns
+    (reference Read/WriteLocalVelocityDensity, io.cxx:178-251).  With a
+    ``mesh``, the approximative mode and at least ``DIST_DENSITY_MIN``
+    active particles, it is computed over the shards' x-slabs.  Returns
     the (n,) density, 0 elsewhere, or None when no particle is active."""
     n = pos.shape[0]
     aidx = torch.nonzero(act).squeeze(1)
@@ -927,9 +936,15 @@ def _global_density(opt: C.Options, pos, vel, act, spacing: float):
     gvel = torch.cat([gvel, gvel.new_zeros(npadg - nact, 3)])
     avalid = torch.arange(npadg, device=pos.device) < nact
     exact = opt.iLocalVelDenApproxCalcFlag == 0
-    d = localfield.velocity_density(gpos, gvel, nvel=opt.Nvel,
-                                    nsearch=opt.Nsearch, active=avalid,
-                                    exact=exact)
+    if mesh is not None and not exact and \
+            nact >= distributed_localfield.DIST_DENSITY_MIN:
+        d = distributed_localfield.distributed_velocity_density(
+            gpos, gvel, mesh, nvel=opt.Nvel, nsearch=opt.Nsearch,
+            active=avalid, boxsize=boxsize)
+    else:
+        d = localfield.velocity_density(gpos, gvel, nvel=opt.Nvel,
+                                        nsearch=opt.Nsearch, active=avalid,
+                                        exact=exact)
     dens[aidx] = d[:nact]
     if opt.smname:
         cache_io.write_local_velocity_density(
@@ -962,9 +977,9 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
     hostid -1 for field objects).  ``timings`` receives the per-phase
     times; the counters ``subsub_level<L>_structures`` (searched),
     ``_candidates`` (before the unbind), ``_found`` and
-    ``subsub_cores_promoted`` go to ``utils/telemetry``."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+    ``subsub_cores_promoted`` go to ``utils/telemetry``.  With ``mesh``
+    the inputs are on ``mesh.home`` and the work is sharded as the module
+    says; the result is that of one device."""
     dev = pos.device if isinstance(pos, torch.Tensor) else torch.device("cpu")
 
     def as_f32(a):
@@ -989,7 +1004,8 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
     dens_global = None
     if opt.iSubSearch and queue and not opt.iHaloLocalDensity:
         act = (pfof > 0) & (sizes0_t[pfof] >= C.MINSUBSIZE)
-        dens_global = _global_density(opt, pos, vel, act, spacing)
+        dens_global = _global_density(opt, pos, vel, act, spacing, mesh,
+                                      boxsize)
     laps.lap("density")
 
     cores_on = opt.iHaloCoreSearch > 0
@@ -1015,18 +1031,23 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
         laps.lap("prep")
         _outliers_level(opt, prep)
         laps.lap("outliers")
-        for e in prep:
-            nsub = e["nsub"]
-            sub, ng_sub = search_subset(
-                opt, e["ppos"][:nsub], e["pvel"][:nsub], e["pmass"][:nsub],
-                e["ell"][:nsub], bounds=e["bounds"], npad=e["npad"])
-            e["sub"], e["ng_sub"] = sub, ng_sub
-        laps.lap("subset")
-        pend = []
-        for e in prep:
-            _cores_and_merges(opt, e, level, cores_on)
-            if e["ng_sub"] > 0:
-                pend.append(e)
+        if mesh is not None:
+            from ..parallel.distributed_substructure import \
+                distributed_structure_search
+
+            distributed_structure_search(opt, prep, level, cores_on, mesh)
+        else:
+            for e in prep:
+                nsub = e["nsub"]
+                sub, ng_sub = search_subset(
+                    opt, e["ppos"][:nsub], e["pvel"][:nsub],
+                    e["pmass"][:nsub], e["ell"][:nsub], bounds=e["bounds"],
+                    npad=e["npad"])
+                e["sub"], e["ng_sub"] = sub, ng_sub
+            laps.lap("subset")
+            for e in prep:
+                _cores_and_merges(opt, e, level, cores_on)
+        pend = [e for e in prep if e["ng_sub"] > 0]
         laps.lap("cores")
         telemetry.count(f"subsub_level{level}_candidates",
                         sum(e["ng_sub"] for e in pend))

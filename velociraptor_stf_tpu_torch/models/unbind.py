@@ -145,9 +145,9 @@ def _group_stats(vel: torch.Tensor, mass: torch.Tensor, g: torch.Tensor,
     of group-sorted particles, each added in index order."""
     i = torch.nonzero(sel).squeeze(1)
     gi, w, v = g[i], mass[i], vel[i]
-    return torch.stack([seg.segment_sum(row, gi, ng1, presorted=True)
-                        for row in (w * v[:, 0], w * v[:, 1], w * v[:, 2],
-                                    w, torch.ones_like(w))])
+    rows = torch.stack([w * v[:, 0], w * v[:, 1], w * v[:, 2], w,
+                        torch.ones_like(w)], 1)
+    return seg.segment_sum(rows, gi, ng1, presorted=True).T
 
 
 def _potref_velocity(vel: torch.Tensor, mass: torch.Tensor,
@@ -210,58 +210,119 @@ def _eject_once(vel: torch.Tensor, mass: torch.Tensor, g: torch.Tensor,
     return bound2, stats, bool(dropped.any())
 
 
+class Ejection:
+    """The iterative ejection over group-sorted particles, one chunk of
+    ``CHUNK_ITERS`` iterations at a time, so that several blocks of whole
+    groups (the shards of a mesh) can share one compaction schedule.
+
+    After every chunk that still dropped a particle, the groups that lost
+    members are the only ones that can change again; with ``bgpot == 0``
+    their potential is recomputed from their bound members (``refresh``).
+    The working set can then shrink to those groups' bound particles
+    (``compact``), and the per-group sums start afresh.  A group's result
+    depends only on its own members and on when the sums start afresh."""
+
+    def __init__(self, pos: torch.Tensor, vel: torch.Tensor,
+                 mass: torch.Tensor, pfof: torch.Tensor, W: torch.Tensor,
+                 num_groups: int, uinfo: UnbindInfo, G: float,
+                 boxsize: Optional[float], min_size: int,
+                 direct_cut: int = MAX_DIRECT):
+        self.ng1 = num_groups + 1
+        self.uinfo, self.G, self.boxsize = uinfo, G, boxsize
+        self.min_size, self.direct_cut = min_size, direct_cut
+        self.potref_vel = _potref_velocity(vel, mass, pfof, W, num_groups,
+                                           uinfo) \
+            if uinfo.cmvelreftype == POTREF else None
+        self.bound_out = pfof > 0
+        self.cur = torch.arange(pfof.shape[0], device=pfof.device)
+        self.pos, self.vel, self.mass, self.pfof, self.W = \
+            pos, vel, mass, pfof, W
+        self.W_init = W
+        self.bound = self.bound_out.clone()
+        self.prev_bound = self.bound
+        self.stats: Optional[torch.Tensor] = None
+        self.sel: Optional[torch.Tensor] = None
+        self.dropped = False
+
+    def chunk(self) -> bool:
+        """Up to ``CHUNK_ITERS`` iterations; False once one dropped
+        nothing (the groups are then final)."""
+        if self.stats is None:
+            self.stats = _group_stats(self.vel, self.mass, self.pfof,
+                                      self.bound, self.ng1)
+        changed = self.dropped = False
+        for _ in range(CHUNK_ITERS):
+            self.bound, self.stats, changed = _eject_once(
+                self.vel, self.mass, self.pfof, self.W, self.bound,
+                self.stats, self.potref_vel, self.uinfo, self.min_size)
+            self.dropped |= changed
+            if not changed:
+                break
+        self.bound_out[self.cur] = self.bound
+        return changed
+
+    def refresh(self) -> int:
+        """Recompute the potential of the groups that lost members in the
+        last chunk (``bgpot == 0``); returns the bound members of those
+        groups, the size of the working set ``compact`` would keep."""
+        pfof, bound = self.pfof, self.bound
+        if not self.dropped:
+            # nothing left this block's groups: none is active
+            self.sel = torch.zeros_like(bound)
+            return 0
+        lost = torch.bincount(pfof[self.prev_bound & ~bound],
+                              minlength=self.ng1)
+        active = (lost > 0)[pfof]
+        if self.uinfo.bgpot == 0:
+            W_new = compute_potential(
+                self.pos, torch.where(bound, self.mass, 0.0),
+                torch.where(active, pfof, 0), self.ng1 - 1, self.uinfo.eps,
+                self.G, self.boxsize, direct_cut=self.direct_cut)
+            self.W = torch.where(active, W_new, self.W)
+        self.sel = bound & active
+        self.prev_bound = bound
+        return int(self.sel.sum())
+
+    def compact(self) -> None:
+        """Shrink the working set to ``refresh``'s selection; the
+        per-group sums start afresh."""
+        keep = torch.nonzero(self.sel).squeeze(1)
+        self.cur, self.pos, self.vel, self.mass, self.pfof, self.W = (
+            a[keep] for a in (self.cur, self.pos, self.vel, self.mass,
+                              self.pfof, self.W))
+        self.bound = self.pfof > 0
+        self.prev_bound = self.bound
+        self.stats = None
+
+
+def run_ejections(blocks, ncur: int) -> None:
+    """Drive the ``Ejection`` of each block in lockstep: a chunk on every
+    block, then, while any block still changed, the potential refresh and
+    -- when the selected members of all blocks together are at most 3/4
+    of the reference's capacity ``ncur`` -- the compaction of every
+    block.  One block is the single-device run."""
+    for _ in range(MAX_CHUNKS):
+        changed = [e.chunk() for e in blocks]
+        if not any(changed):
+            break
+        nsel = sum(e.refresh() for e in blocks)
+        if 0 < nsel <= (3 * ncur) // 4:
+            for e in blocks:
+                e.compact()
+            ncur = seg.pad_class(nsel)
+
+
 def eject(pos: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor,
           pfof: torch.Tensor, W: torch.Tensor, num_groups: int,
           uinfo: UnbindInfo, G: float, boxsize: Optional[float],
           min_size: int, ncur: int) -> torch.Tensor:
-    """Iterative ejection over group-sorted particles -> bound mask.
-
-    After every chunk of ``CHUNK_ITERS`` iterations that still dropped a
-    particle, the groups that lost members are the only ones that can
-    change again; with ``bgpot == 0`` their potential is recomputed from
-    their bound members.  The working set shrinks to those groups' bound
-    particles when they are at most 3/4 of the reference's capacity
-    ``ncur``, and the per-group sums then start afresh."""
-    ng1 = num_groups + 1
-    if uinfo.cmvelreftype == POTREF:
-        potref_vel = _potref_velocity(vel, mass, pfof, W, num_groups, uinfo)
-    else:
-        potref_vel = None
-    bound_out = pfof > 0
-    cur = torch.arange(pfof.shape[0], device=pfof.device)
-    bound = bound_out.clone()
-    prev_bound = bound
-    stats = None
-    for _ in range(MAX_CHUNKS):
-        if stats is None:
-            stats = _group_stats(vel, mass, pfof, bound, ng1)
-        for _ in range(CHUNK_ITERS):
-            bound, stats, changed = _eject_once(vel, mass, pfof, W, bound,
-                                                stats, potref_vel, uinfo,
-                                                min_size)
-            if not changed:
-                break
-        bound_out[cur] = bound
-        if not changed:
-            break
-        lost = torch.bincount(pfof[prev_bound & ~bound], minlength=ng1)
-        active = (lost > 0)[pfof]
-        if uinfo.bgpot == 0:
-            W_new = compute_potential(pos, torch.where(bound, mass, 0.0),
-                                      torch.where(active, pfof, 0),
-                                      num_groups, uinfo.eps, G, boxsize)
-            W = torch.where(active, W_new, W)
-        sel = bound & active
-        nsel = int(sel.sum())
-        if 0 < nsel <= (3 * ncur) // 4:
-            keep = torch.nonzero(sel).squeeze(1)
-            cur, pos, vel, mass, pfof, W = (a[keep] for a in
-                                            (cur, pos, vel, mass, pfof, W))
-            ncur = seg.pad_class(nsel)
-            bound = pfof > 0
-            stats = None
-        prev_bound = bound
-    return bound_out
+    """Iterative ejection over group-sorted particles -> bound mask
+    (``Ejection`` on one block); ``ncur`` is the reference's working-set
+    capacity, which decides when the per-group sums start afresh."""
+    e = Ejection(pos, vel, mass, pfof, W, num_groups, uinfo, G, boxsize,
+                 min_size)
+    run_ejections([e], ncur)
+    return e.bound_out
 
 
 def _finalize(pfof: torch.Tensor, bound: torch.Tensor, W: torch.Tensor,

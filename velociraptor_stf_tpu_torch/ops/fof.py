@@ -162,15 +162,17 @@ def pair_grid(points: Sequence[torch.Tensor], cellwidth: float,
 
 def stencil_windows(row_cid_sorted: torch.Tensor,
                     col_cid_sorted: torch.Tensor, grid: CellGrid,
-                    periodic: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    periodic: bool, clip_x: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cell, win) for ``cell_pairs``: the (nrows,) number of each
     cell-sorted row's cell among the occupied row cells, and per such cell
     the (ncell, 18, 2) int32 windows (start, count) into the cell-sorted
-    columns that hold the 27 cells around it."""
+    columns that hold the 27 cells around it (``clip_x``: periodic in y
+    and z only)."""
     cells, cell = torch.unique_consecutive(row_cid_sorted,
                                            return_inverse=True)
     pst, pcn = point_windows_dense(unpack_cells(cells, grid), col_cid_sorted,
-                                   grid, periodic)
+                                   grid, periodic, clip_x)
     return cell, torch.stack([pst, pcn], -1).to(torch.int32)
 
 

@@ -6,12 +6,16 @@ Segment sums add each segment's elements in index order with
 ``torch.segment_reduce`` over the values sorted (stably) by segment: on the
 CPU that is the reference's sequential scatter-add order, so float32 sums
 round identically, and on a GPU the result does not depend on the run
-(atomics would add in a different order every time).  Where the reference
-compacts with padded capacities (``compact_mask``, ``gather_rows``), the
-port indexes with ``torch.nonzero`` and plain gathers.
+(atomics would add in a different order every time) nor on where a
+segment lies in the array (each is reduced from an aligned start).
+Where the reference compacts with padded capacities (``compact_mask``,
+``gather_rows``), the port indexes with ``torch.nonzero`` and plain
+gathers.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -54,21 +58,52 @@ def segment_count(mask: torch.Tensor, seg: torch.Tensor,
     return torch.bincount(seg[mask], minlength=num_segments)
 
 
+# a segment's first element sits at a multiple of this many elements
+# before a CUDA segment_reduce (see ``segment_sum``)
+_ALIGN = 16
+
+
+def _aligned_segments(values: torch.Tensor, seg: torch.Tensor,
+                      lengths: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted ``values`` copied so that every segment starts at a multiple
+    of ``_ALIGN`` elements (zeros after each segment, and a last filler
+    segment): the CUDA segment reduction loads vectors from a segment's
+    start, so its float sums depend on that start's alignment.  No host
+    sync: the copy has the fixed size n + _ALIGN * (segments + 1)."""
+    n, ns = values.shape[0], lengths.shape[0]
+    padded = (lengths + _ALIGN - 1) // _ALIGN * _ALIGN
+    start = torch.cumsum(padded, 0) - padded
+    first = torch.cumsum(lengths, 0) - lengths
+    size = n + _ALIGN * (ns + 1)
+    out = values.new_zeros((size,) + tuple(values.shape[1:]))
+    out[torch.arange(n, device=values.device) - first[seg] + start[seg]] = \
+        values
+    return out, torch.cat([padded, (size - padded.sum()).reshape(1)])
+
+
 def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
                 presorted: bool = False) -> torch.Tensor:
     """Per-segment sum along axis 0 (0 for an empty segment), each segment
     added in index order.  ``presorted``: ``seg`` is already
-    non-decreasing."""
+    non-decreasing.  On a GPU each segment is reduced from an aligned
+    start (``_aligned_segments``), so its sum depends on its own elements
+    only, not on where it lies in the array (a shard's block or the whole
+    set)."""
     if not presorted:
         order = torch.argsort(seg, stable=True)
         values, seg = values[order], seg[order]
     lengths = torch.bincount(seg, minlength=num_segments)
+    if values.is_cuda:
+        values, lengths = _aligned_segments(values, seg, lengths)
     if values.dim() == 1:
-        return torch.segment_reduce(values, "sum", lengths=lengths,
-                                    unsafe=True)
-    return torch.stack([torch.segment_reduce(
-        values[:, j].contiguous(), "sum", lengths=lengths, unsafe=True)
-        for j in range(values.shape[1])], -1)
+        out = torch.segment_reduce(values, "sum", lengths=lengths,
+                                   unsafe=True)
+    else:
+        out = torch.stack([torch.segment_reduce(
+            values[:, j].contiguous(), "sum", lengths=lengths, unsafe=True)
+            for j in range(values.shape[1])], -1)
+    return out[:num_segments]
 
 
 def segment_mean(values: torch.Tensor, weights: torch.Tensor,

@@ -47,12 +47,13 @@ def _slot_budget(device: torch.device) -> int:
 
 
 def point_windows_dense(qcoords: torch.Tensor, cid_sorted: torch.Tensor,
-                        grid: CellGrid, periodic: bool
+                        grid: CellGrid, periodic: bool, clip_x: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, 18) start and count of the candidate windows of the 27-cell
     stencil around query cells: 9 (dx, dy) columns, each a contiguous
     z-run of the cell-sorted particles, then 9 single-cell periodic z-wrap
-    remainders."""
+    remainders.  ``clip_x``: a periodic grid that does not wrap in x (a
+    slab with its ghost columns, ``parallel/distributed_fof.py``)."""
     nx, ny, nz = grid.ncells
 
     def pstart(c):      # particles in cells below c
@@ -81,6 +82,9 @@ def point_windows_dense(qcoords: torch.Tensor, cid_sorted: torch.Tensor,
             xq = torch.remainder(x + dx, nx)
             yq = torch.remainder(y + dy, ny)
             ok = None
+            if clip_x:
+                ok = (x + dx >= 0) & (x + dx < nx)
+                xq = torch.clamp(x + dx, 0, nx - 1)
         else:
             xq, yq = x + dx, y + dy
             ok = (xq >= 0) & (xq < nx) & (yq >= 0) & (yq < ny)
@@ -145,13 +149,17 @@ def _class_histogram(pos_s, mass_s, centers, rsearch, cid_sorted,
                      lnumin: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, nbins) mass and count histograms of one radius class.  Bin 0
     holds r <= umin * rsearch; bins 1..nbins-1 are log-spaced in u =
-    r / rsearch over [umin, 1]."""
+    r / rsearch over [umin, 1].  Masses are summed in float64 (exact for
+    equal masses), so the sum does not depend on how the candidates are
+    split: a mesh adds its shards' histograms
+    (``parallel/distributed_so.py``); the caller rounds them to the
+    positions' dtype."""
     H = centers.shape[0]
     periodic = bool(boxsize)
     pst, pcn = point_windows_dense(cell_coords(centers, grid, periodic),
                                    cid_sorted, grid, periodic)
     dlog = -lnumin / (nbins - 1)
-    Mh = torch.zeros(H * nbins, dtype=pos_s.dtype, device=pos_s.device)
+    Mh = torch.zeros(H * nbins, dtype=torch.float64, device=pos_s.device)
     Nh = torch.zeros(H * nbins, dtype=torch.int64, device=pos_s.device)
     for row, col in flat_candidates(pst, pcn, _slot_budget(pos_s.device)):
         u = torch.sqrt(seg.sq3(_offsets(pos_s, centers, row, col,
@@ -163,7 +171,7 @@ def _class_histogram(pos_s, mass_s, centers, rsearch, cid_sorted,
         b = 1 + torch.floor((torch.log(torch.clamp_min(u, 1e-30)) - lnumin)
                             / dlog).long()
         flat = (row * nbins + torch.clamp(b, 0, nbins - 1))[ok]
-        Mh += seg.segment_sum(mcand[ok], flat, H * nbins)
+        Mh += seg.segment_sum(mcand[ok].double(), flat, H * nbins)
         Nh += torch.bincount(flat, minlength=H * nbins)
     return Mh.view(H, nbins), Nh.view(H, nbins)
 
@@ -259,7 +267,7 @@ def so_masses_all_particles(pos: torch.Tensor, mass: torch.Tensor,
             torch.tensor(centers[sel], dtype=pos.dtype, device=dev), rs,
             cid_sorted, grid, boxsize, nbins, lnumin)
         M, R = _so_crossings(
-            Mh, Nh, rs, lnthr,
+            Mh.to(pos.dtype), Nh, rs, lnthr,
             torch.tensor(minnum[sel], dtype=torch.int64, device=dev),
             torch.tensor(first_mass[sel], dtype=pos.dtype, device=dev),
             nbins, lnumin)

@@ -12,7 +12,14 @@ asserted on in tests.
 
 The port counts ``fof3d_sweeps`` and ``fof6d_sweeps``
 (``ops/fof_sweep.py``) and ``baryon_pairs``, the (baryon, tagged DM)
-candidate pairs of the association (``models/baryons.py``).  Keys of the JAX package:
+candidate pairs of the association (``models/baryons.py``).  Its mesh
+path (``parallel/``) counts ``coll_bytes::<stage>::<kind>`` and
+``coll_ops::<stage>::<kind>`` (``collectives.py``), the shards' loads
+``mesh_slab_load::<stage>::shard<s>`` and
+``mesh_group_load::<stage>::shard<s>``, the slab FOF's candidate pairs
+``mesh_candidates::<fof3d|fof6d>::shard<s>`` and its cross-slab rounds
+``<fof3d|fof6d>_outer_rounds``, and the catalog's host fetches
+``mesh_full_gathers`` (``utils/transfer.py``).  Keys of the JAX package:
   subset_batched_structures / subset_batched_particles
       structures (and their padded particle counts) whose candidate
       search ran in a vmapped class batch
