@@ -1589,6 +1589,10 @@ def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
     if len(aligned) != 1:
         raise AssertionError("segment sums depend on the segment's offset")
 
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
     card0 = torch.device(dev.type, 0) if dev.type == "cuda" else dev
     meshes = [(f"{MESH_SHARDS} shards on {card0}",
                Mesh((card0,) * MESH_SHARDS))]
@@ -1611,7 +1615,7 @@ def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
                 t0 = time.perf_counter()
                 res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
                                       mesh=mesh)
-                torch.cuda.synchronize()
+                sync()
                 wall = time.perf_counter() - t0
                 counts = dict(kernels.LAUNCHES)
                 tele = telemetry.snapshot()
@@ -1657,80 +1661,34 @@ def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # the hydro and substructure paths at 128^3, one card against the mesh
-    mesh = meshes[0][1]
+    # the hydro and substructure paths at 128^3, the planted subhalos and
+    # the sharded density: one card's results once, then each mesh's
     sn = MESH_SMALL_N
     spos, svel, smass = make_cosmo_mock(sn, boxsize=BOXSIZE,
                                         nhalos=max(64, sn // 16384), seed=7)
+    ptype, extras = hydro_inputs(np, len(spos))
     tmp = Path(tempfile.mkdtemp(prefix="vr_mesh_"))
     try:
-        ptype, extras = hydro_inputs(np, len(spos))
-        for what, o, kw in (
-                ("hydro", hydro_options(sn, C, tmp / "h.cfg"),
-                 dict(ptype=ptype, extras=extras)),
-                ("substructure", sub_options(sn, C, tmp / "s.cfg"), {})):
-            t0 = time.perf_counter()
-            one = find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
-                                  device=dev, **kw)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            got = find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
-                                  mesh=mesh, **kw)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            msg = check_mesh_catalog(np, got, one, spos, svel, smass, o,
-                                     f"{what} path at n={sn}")
-            extra = ""
-            if what == "hydro":
-                bar = ptype != 1
-                extra = (f"; {int((got.pfof[bar] > 0).sum())} baryons "
-                         "associated, as on one device")
-            else:
-                extra = (f"; {int((got.parent[1:] > 0).sum())} "
-                         "substructures")
-            log(f"phase 10 {what} path at n={sn}: {msg}{extra}; one device "
-                f"{t1 - t0:.3f} s, mesh {t2 - t1:.3f} s")
-            if what == "substructure":
-                real = distributed_localfield.DIST_DENSITY_MIN
-                distributed_localfield.DIST_DENSITY_MIN = 1
-                try:
-                    t0 = time.perf_counter()
-                    dres = find_structures(o, spos, svel, smass,
-                                           boxsize=BOXSIZE, mesh=mesh)
-                    torch.cuda.synchronize()
-                    dt = time.perf_counter() - t0
-                finally:
-                    distributed_localfield.DIST_DENSITY_MIN = real
-                hosts = [r.pfof * (r.parent[r.pfof] == 0)
-                         for r in (one, dres)]
-                if not np.array_equal(hosts[0], hosts[1]):
-                    raise AssertionError("sharded density: the field "
-                                         "structures differ")
-                agree = float(((dres.pfof > 0) == (one.pfof > 0)).mean())
-                nd = int((dres.parent[1:] > 0).sum())
-                log(f"phase 10 substructure path with the sharded density: "
-                    f"field structures equal; {nd} substructures (one device "
-                    f"{int((one.parent[1:] > 0).sum())}); tagged-state "
-                    f"agreement {agree:.5f}; {dt:.3f} s")
-            del one, got
+        paths = [("hydro", hydro_options(sn, C, tmp / "h.cfg"),
+                  dict(ptype=ptype, extras=extras)),
+                 ("substructure", sub_options(sn, C, tmp / "s.cfg"), {})]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # three planted hosts with subhalos: the mesh against one card
+    ones = []
+    for what, o, kw in paths:
+        t0 = time.perf_counter()
+        ones.append(find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
+                                    device=dev, **kw))
+        sync()
+        ones[-1].timings["wall"] = time.perf_counter() - t0
     ppos, pvel, pmass, _ = planted_subhalos(3, seed=3, offset=4.0)
     pone = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
                            boxsize=16.0, device=dev)
-    pgot = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
-                           boxsize=16.0, mesh=mesh)
     nsub = int((pone.parent[1:] > 0).sum())
     if nsub < 2:
         raise AssertionError(f"planted subhalos: {nsub} substructures")
-    msg = check_mesh_catalog(np, pgot, pone, ppos, pvel, pmass,
-                             planted_options(C, G_KMS), "planted subhalos")
-    log(f"phase 10 planted subhalos: {msg}; {nsub} substructures")
-
-    # the sharded density against one device's, at the JAX test's
-    # statistics (tests/test_distributed.py:300-346), scaled up
+    # the JAX test's density mock (tests/test_distributed.py:300-346),
+    # scaled up, its clump across a slab boundary
     rng = np.random.default_rng(77)
     box = 10.0
     nclump = DENSITY_N // 8
@@ -1745,22 +1703,72 @@ def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
             np.float32)).to(dev)
     t0 = time.perf_counter()
     d1 = localfield.velocity_density(dpos, dvel).cpu().numpy()
-    t1 = time.perf_counter()
-    dm = distributed_localfield.distributed_velocity_density(
-        dpos, dvel, mesh, boxsize=box).cpu().numpy()
-    t2 = time.perf_counter()
-    logr = np.log(dm) - np.log(d1)
-    med = float(np.median(np.abs(logr)))
-    k = DENSITY_N // 20
-    overlap = len(set(np.argsort(-d1)[:k]) & set(np.argsort(-dm)[:k])) / k
-    ratio = float(np.median(dm[:nclump]) / np.median(dm[nclump:]))
-    if not ((dm > 0).all() and med < 0.2 and overlap > 0.9 and ratio > 10):
-        raise AssertionError(f"sharded density: median |log ratio| {med}, "
-                             f"top-5% overlap {overlap}, clump / "
-                             f"background {ratio}")
-    log(f"phase 10 sharded density at n={DENSITY_N}: median |log ratio| "
-        f"{med:.4f}, top-5% overlap {overlap:.4f}, clump / background "
-        f"{ratio:.1f}; one device {t1 - t0:.3f} s, mesh {t2 - t1:.3f} s")
+    t_one = time.perf_counter() - t0
+
+    for label, mesh in meshes:
+        for (what, o, kw), one in zip(paths, ones):
+            t0 = time.perf_counter()
+            got = find_structures(o, spos, svel, smass, boxsize=BOXSIZE,
+                                  mesh=mesh, **kw)
+            sync()
+            dt = time.perf_counter() - t0
+            msg = check_mesh_catalog(np, got, one, spos, svel, smass, o,
+                                     f"{what} path at n={sn} ({label})")
+            if what == "hydro":
+                extra = (f"; {int((got.pfof[ptype != 1] > 0).sum())} "
+                         "baryons associated, as on one device")
+            else:
+                extra = (f"; {int((got.parent[1:] > 0).sum())} "
+                         "substructures")
+            log(f"phase 10 {label} {what} path at n={sn}: {msg}{extra}; one "
+                f"device {one.timings['wall']:.3f} s, mesh {dt:.3f} s")
+        one = ones[1]
+        real = distributed_localfield.DIST_DENSITY_MIN
+        distributed_localfield.DIST_DENSITY_MIN = 1
+        try:
+            t0 = time.perf_counter()
+            dres = find_structures(paths[1][1], spos, svel, smass,
+                                   boxsize=BOXSIZE, mesh=mesh)
+            sync()
+            dt = time.perf_counter() - t0
+        finally:
+            distributed_localfield.DIST_DENSITY_MIN = real
+        hosts = [r.pfof * (r.parent[r.pfof] == 0) for r in (one, dres)]
+        if not np.array_equal(hosts[0], hosts[1]):
+            raise AssertionError("sharded density: the field structures "
+                                 "differ")
+        agree = float(((dres.pfof > 0) == (one.pfof > 0)).mean())
+        log(f"phase 10 {label} substructure path with the sharded density: "
+            f"field structures equal; {int((dres.parent[1:] > 0).sum())} "
+            f"substructures (one device {int((one.parent[1:] > 0).sum())});"
+            f" tagged-state agreement {agree:.5f}; {dt:.3f} s")
+
+        pgot = find_structures(planted_options(C, G_KMS), ppos, pvel, pmass,
+                               boxsize=16.0, mesh=mesh)
+        msg = check_mesh_catalog(np, pgot, pone, ppos, pvel, pmass,
+                                 planted_options(C, G_KMS),
+                                 f"planted subhalos ({label})")
+        log(f"phase 10 {label} planted subhalos: {msg}; {nsub} "
+            "substructures")
+
+        t0 = time.perf_counter()
+        dm = distributed_localfield.distributed_velocity_density(
+            dpos, dvel, mesh, boxsize=box).cpu().numpy()
+        dt = time.perf_counter() - t0
+        med = float(np.median(np.abs(np.log(dm) - np.log(d1))))
+        k = DENSITY_N // 20
+        overlap = len(set(np.argsort(-d1)[:k]) &
+                      set(np.argsort(-dm)[:k])) / k
+        ratio = float(np.median(dm[:nclump]) / np.median(dm[nclump:]))
+        if not ((dm > 0).all() and med < 0.2 and overlap > 0.9 and
+                ratio > 10):
+            raise AssertionError(f"sharded density ({label}): median |log "
+                                 f"ratio| {med}, top-5% overlap {overlap}, "
+                                 f"clump / background {ratio}")
+        log(f"phase 10 {label} sharded density at n={DENSITY_N}: median "
+            f"|log ratio| {med:.4f}, top-5% overlap {overlap:.4f}, clump / "
+            f"background {ratio:.1f}; one device {t_one:.3f} s, mesh "
+            f"{dt:.3f} s")
 
 
 def span_table(torch, targets, run, title: str, plain_ms: float,

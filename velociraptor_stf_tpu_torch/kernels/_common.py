@@ -158,6 +158,13 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t: torch.Tensor):
+    """Context making ``t``'s card the current device: a launch through
+    the library's C interface runs on the current device, which need not
+    hold the tensors (a mesh over several cards, or ``device="cuda:1"``)."""
+    return torch.cuda.device(t.device)
+
+
 def window_tiles(windows: torch.Tensor, ns: int,
                  blocks: Optional[torch.Tensor] = None,
                  cols_per_tile: int = 2048

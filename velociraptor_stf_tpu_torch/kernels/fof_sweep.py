@@ -35,7 +35,7 @@ import torch
 from . import LAUNCHES
 from ._build import check, load_library
 from ._common import (BIG_I32, cell_pairs, check_cells, check_columns, f32,
-                      kernel_device, pair_d2, require, stream)
+                      kernel_device, on_device, pair_d2, require, stream)
 
 NWIN = 9
 
@@ -149,9 +149,10 @@ def detect(pts: torch.Tensor, col: torch.Tensor, colstart: torch.Tensor,
         return detect_ref(pts, col, colstart, ny, b2)
     out = torch.empty(ns, dtype=torch.int32, device=pts.device)
     if ns:
-        check(load_library().vr_fof_detect(
-            pts.data_ptr(), col.data_ptr(), colstart.data_ptr(), ns, nx, ny,
-            b2, out.data_ptr(), stream(pts)), "vr_fof_detect")
+        with on_device(pts):
+            check(load_library().vr_fof_detect(
+                pts.data_ptr(), col.data_ptr(), colstart.data_ptr(), ns, nx,
+                ny, b2, out.data_ptr(), stream(pts)), "vr_fof_detect")
         LAUNCHES["fof_detect"] += 1
     return out
 
@@ -167,10 +168,11 @@ def sweep3d(pts: torch.Tensor, labels: torch.Tensor, cell: torch.Tensor,
         return sweep3d_ref(pts, labels, cell, win, b2)
     out = torch.empty(ns, dtype=torch.int32, device=pts.device)
     if ns:
-        check(load_library().vr_fof_sweep3d(
-            pts.data_ptr(), labels.data_ptr(), cell.data_ptr(),
-            win.data_ptr(), ns, b2, out.data_ptr(), stream(pts)),
-            "vr_fof_sweep3d")
+        with on_device(pts):
+            check(load_library().vr_fof_sweep3d(
+                pts.data_ptr(), labels.data_ptr(), cell.data_ptr(),
+                win.data_ptr(), ns, b2, out.data_ptr(), stream(pts)),
+                "vr_fof_sweep3d")
         LAUNCHES["fof_sweep3d"] += 1
     return out
 
@@ -190,9 +192,10 @@ def sweep6d(pts: torch.Tensor, vels: torch.Tensor, labels: torch.Tensor,
         return sweep6d_ref(pts, vels, labels, cell, win, inv_b2)
     out = torch.empty(ns, dtype=torch.int32, device=pts.device)
     if ns:
-        check(load_library().vr_fof_sweep6d(
-            pts.data_ptr(), vels.data_ptr(), labels.data_ptr(),
-            cell.data_ptr(), win.data_ptr(), ns, inv_b2, out.data_ptr(),
-            stream(pts)), "vr_fof_sweep6d")
+        with on_device(pts):
+            check(load_library().vr_fof_sweep6d(
+                pts.data_ptr(), vels.data_ptr(), labels.data_ptr(),
+                cell.data_ptr(), win.data_ptr(), ns, inv_b2, out.data_ptr(),
+                stream(pts)), "vr_fof_sweep6d")
         LAUNCHES["fof_sweep6d"] += 1
     return out

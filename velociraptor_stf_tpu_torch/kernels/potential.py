@@ -32,8 +32,8 @@ import torch
 
 from . import LAUNCHES, R_BLOCK
 from ._build import check, load_library
-from ._common import f32, kernel_device, pair_d2, require, stream, \
-    window_tiles
+from ._common import f32, kernel_device, on_device, pair_d2, require, \
+    stream, window_tiles
 
 THREADS = 128
 ROWS_PER_THREAD = 4
@@ -170,10 +170,11 @@ def potential(pos: torch.Tensor, mass: torch.Tensor, gid: torch.Tensor,
         items, first = work_items(windows)
         scratch = torch.empty(items.shape[0], ROWS_PER_BLOCK,
                               dtype=torch.float64, device=pos.device)
-        check(lib.vr_potential(packed.data_ptr(), windows.data_ptr(), ns,
-                               items.data_ptr(), items.shape[0],
-                               first.data_ptr(), eps2, scratch.data_ptr(),
-                               out.data_ptr(), stream(pos)),
-              "vr_potential")
+        with on_device(pos):
+            check(lib.vr_potential(packed.data_ptr(), windows.data_ptr(), ns,
+                                   items.data_ptr(), items.shape[0],
+                                   first.data_ptr(), eps2, scratch.data_ptr(),
+                                   out.data_ptr(), stream(pos)),
+                  "vr_potential")
         LAUNCHES["potential"] += 1
     return out
