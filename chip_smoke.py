@@ -73,9 +73,14 @@ csrc`` and drives the port on the card, in phases:
    stage times and the recursion's laps, structures searched and
    substructures found per level, cores promoted, launches, peak memory;
    both runs equal bit for bit, the hierarchy consistent, every member of
-   a top-level structure bound; then three planted hosts with subhalos
-   through find_structures on the card and on the CPU: equal ids and
-   hierarchy, at least two substructures;
+   a top-level structure bound; in the first run every structure the
+   batched subset search (``search_subset_batch``) takes is searched again
+   by the per-structure ``search_subset`` on the card: ids and group
+   counts exactly equal; every structure searched must go through the
+   batched search (``subset_batched_structures``), with its batches and
+   in-reach pairs printed beside the ``subset`` and ``cores`` laps; then
+   three planted hosts with subhalos through find_structures on the card
+   and on the CPU: equal ids and hierarchy, at least two substructures;
 10. the mesh path (``velociraptor_stf_tpu_torch/parallel``): find_structures
    with ``mesh=`` four shards on one card (and over every card when there
    are several) at 256^3 with phase 4's options, twice: against phase 4's
@@ -1361,11 +1366,42 @@ def planted_options(C, G):
     return opt
 
 
+def batch_against_per_structure(torch, S, checked: list):
+    """Wrap ``S.search_subset_batch`` so that every structure it searches
+    is searched again by the per-structure ``S.search_subset``: ids and
+    group counts must be equal.  Appends (structures, group ids compared)
+    per call to ``checked``; returns the function that unwraps."""
+    real = S.search_subset_batch
+
+    def checking(opt, entries, pair_budget=None):
+        real(opt, entries, pair_budget)
+        ids = 0
+        for e in entries:
+            k = e["nsub"]
+            want, ng = S.search_subset(
+                opt, e["ppos"][:k], e["pvel"][:k], e["pmass"][:k],
+                e["ell"][:k], bounds=e["bounds"], npad=e["npad"])
+            if ng != e["ng_sub"] or not torch.equal(want, e["sub"]):
+                raise AssertionError(
+                    f"batched subset search: a structure of {k} rows has "
+                    f"{e['ng_sub']} groups, the per-structure search {ng}; "
+                    f"{int((want != e['sub']).sum())} ids differ")
+            ids += k
+        checked.append((len(entries), ids))
+
+    S.search_subset_batch = checking
+
+    def undo():
+        S.search_subset_batch = real
+    return undo
+
+
 def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     """Phase 9: the substructure path at full width.  Returns (the
     options, the kernels' launch counts over the last run)."""
     from velociraptor_stf_tpu_torch.io.synthetic import (G_KMS,
                                                          planted_subhalos)
+    from velociraptor_stf_tpu_torch.models import substructure
     from velociraptor_stf_tpu_torch.models.pipeline import find_structures
     from velociraptor_stf_tpu_torch.utils import telemetry
 
@@ -1375,14 +1411,21 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     first = None
+    checked: list = []
     for rep in range(2):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         telemetry.reset()
+        # the warm-up run holds the batched search to the per-structure one
+        undo = batch_against_per_structure(torch, substructure, checked) \
+            if rep == 0 else (lambda: None)
         t0 = time.perf_counter()
-        res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
-                              device=dev)
+        try:
+            res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
+                                  device=dev)
+        finally:
+            undo()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernels.LAUNCHES)
@@ -1413,6 +1456,25 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
         log(f"phase 9 level {lv}: {searched} structures searched, {cand} "
             f"candidates, {found} substructures found" +
             ("" if found else " (no substructure at this level)"))
+    searched = sum(v for k, v in tele.items()
+                   if k.startswith("subsub_level") and
+                   k.endswith("_structures"))
+    nbatched = tele.get("subset_batched_structures", 0)
+    log(f"phase 9 subset search: {nbatched} of {searched} structures "
+        f"batched ({tele.get('subset_sequential_structures', 0)} "
+        f"per structure) in {tele.get('subset_batches', 0)} batches, "
+        f"{tele.get('subset_batch_candidates', 0)} candidate slots, "
+        f"{tele.get('subset_batch_pairs', 0)} in-reach pairs; laps subset "
+        f"{res.timings.get('subsub_subset', 0.0):.4f} s, cores "
+        f"{res.timings.get('subsub_cores', 0.0):.4f} s; warm-up run: "
+        f"{sum(c[0] for c in checked)} structures ({sum(c[1] for c in checked)}"
+        f" rows) in {len(checked)} batched calls equal to the per-structure"
+        " search")
+    if nbatched != searched or not checked or \
+            sum(c[0] for c in checked) != searched:
+        raise AssertionError(f"substructure path: {nbatched} of {searched} "
+                             "structures took the batched subset search, "
+                             f"{sum(c[0] for c in checked)} were checked")
     nsub = int((res.parent[1:] > 0).sum())
     log(f"phase 9 hierarchy: {res.ngroups - nsub} field structures, {nsub} "
         f"substructures, deepest level {deepest}; "
@@ -1940,6 +2002,12 @@ def subsub_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
         (bgfield, "distribution", "distribution"),
         (bgfield, "refine", "refine"),
         (bgfield, "_skewgauss_fit", "_skewgauss_fit (host)"),
+        (S, "search_level_subsets", "search_level_subsets"),
+        (S, "search_subset_batch", "search_subset_batch"),
+        (fof, "segmented_cells", "segmented_cells"),
+        (S, "_subset_batch", "_subset_batch"),
+        (fof.SegmentedCells, "pairs", "in-reach pairs"),
+        (S, "_merge_targets", "_merge_targets (host)"),
         (S, "search_subset", "search_subset"),
         (fof, "build_edges", "build_edges"),
         (fof, "fof_labels_from_edges", "fof_labels_from_edges"),

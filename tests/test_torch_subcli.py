@@ -22,6 +22,7 @@ from velociraptor_stf_tpu.utils import config as C
 from velociraptor_stf_tpu_torch import cli as tcli
 from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import pipeline as TP
+from velociraptor_stf_tpu_torch.utils import telemetry
 
 from test_golden import (GOLDEN, _golden_options, _match_fraction,
                          _partition)
@@ -86,8 +87,9 @@ def cli_runs(tmp_path_factory):
             os.environ.pop("VR_MESH")
         else:
             os.environ["VR_MESH"] = old
+    telemetry.reset()
     got = tcli.run(convert.options(options(str(d / "torch"))), device="cpu")
-    return d, want, got
+    return d, want, got, telemetry.snapshot()
 
 
 def _datasets(path):
@@ -99,8 +101,15 @@ def _datasets(path):
 
 
 def test_cli_example_config_matches_reference(cli_runs):
-    d, want, got = cli_runs
+    d, want, got, counts = cli_runs
     assert got.ngroups == want.ngroups > 0
+    # the example config's subset search is the batched one, for every
+    # structure searched
+    searched = sum(v for k, v in counts.items()
+                   if k.startswith("subsub_level") and
+                   k.endswith("_structures"))
+    assert counts["subset_batched_structures"] == searched > 0
+    assert counts.get("subset_sequential_structures", 0) == 0
     assert got.parent is not None and got.timings["subsub_subset"] > 0
     for ext in (".catalog_groups", ".hierarchy"):
         g, w = _datasets(d / f"torch{ext}"), _datasets(d / f"jax{ext}")
@@ -118,7 +127,7 @@ def test_cli_density_cache_passes_through(cli_runs, tmp_path):
     """``Output_den`` reaches the recursion through the port's CLI: the
     first run writes the velocity-density cache, the second replays it
     and writes the same catalog."""
-    d, _, got = cli_runs
+    d, _, got, _ = cli_runs
     cfg = tmp_path / "den.cfg"
     cache = tmp_path / "run.localden"
     cfg.write_text(EXAMPLE.read_text() + f"\nOutput_den={cache}\n")

@@ -11,8 +11,9 @@ and the catalogs go through the port's writers (``io/writers.py``).
 The run is sharded over a mesh (``parallel/``) as ``_auto_mesh`` decides:
 on ``cuda`` over every visible card when there are several, ``VR_MESH=N``
 taking the first N (0 or 1: one device); on ``--device cpu`` over
-``VR_MESH=N`` CPU shards, and on one device without it.  The jax profiler
-trace is not ported.
+``VR_MESH=N`` CPU shards, and on one device without it.  ``VR_PROFILE=
+<dir>`` writes a ``torch.profiler`` trace of the search (Chrome trace
+JSON) into ``<dir>``, as the reference writes its jax.profiler trace.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from .io import writers
 from .models import pipeline, unbind as unbind_mod
 from .utils import config as C
 from .utils import units
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, profile_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -243,9 +244,10 @@ def run(opt: C.Options, device="cuda") -> pipeline.CatalogResult:
     mesh = _auto_mesh(device)
     if mesh is not None and opt.iverbose:
         print(f"Running sharded over {mesh.size} shards")
-    res = pipeline.find_structures(opt, pos, vel, mass, boxsize=boxsize,
-                                   ptype=ptype, extras=extras,
-                                   device=device, mesh=mesh)
+    with profile_trace(os.environ.get("VR_PROFILE")):
+        res = pipeline.find_structures(opt, pos, vel, mass, boxsize=boxsize,
+                                       ptype=ptype, extras=extras,
+                                       device=device, mesh=mesh)
     for k, v in res.timings.items():
         timer.record(k, v)
 

@@ -1,10 +1,11 @@
 """Substructure search: phase-space outliers, stream FOF, merger cores and
 the recursion over levels (port of velociraptor_stf_tpu/models/
 substructure.py: the pair criteria, ``subset_predicate``,
-``significance_filter``, ``search_subset``, ``merge_linked_groups``,
-``attach_expand``, the three host merges, the padded structure context,
-``structure_outliers``, ``search_sub_sub``, ``Pred6DCore``,
-``halo_core_search`` and ``_phase_tensor_growth``).
+``significance_filter``, ``search_subset``, the batched subset search
+(``_batchable_subset``, ``_subset_preds``, ``_search_subset_batch``),
+``merge_linked_groups``, ``attach_expand``, the three host merges, the
+padded structure context, ``structure_outliers``, ``search_sub_sub``,
+``Pred6DCore``, ``halo_core_search`` and ``_phase_tensor_growth``).
 
 * ``search_subset`` (reference SearchSubset, search.cxx:910-1816): a pair
   links when both particles are outliers (ell >= threshold), lie within
@@ -14,6 +15,16 @@ substructure.py: the pair criteria, ``subset_predicate``,
   (MergeGroups).  One cell-sorted edge table at the widest reach serves
   all four passes.  ``significance_filter`` (CheckSignificance, :2947)
   sheds low-ell members until a group is significant.
+* ``search_subset_batch``: the same search over many structures at once,
+  which ``search_sub_sub`` takes for a whole level whenever the reference
+  batches (``_batchable_subset``: the iterative search, any foftype but
+  FOFSTPROBNNNODIST).  One cell sort keyed by (structure, cell), then
+  batches of whole structures under an exact pair budget; in each, the
+  four criteria in one pass over the in-reach pairs and every graph pass
+  on ids offset by structure, with at most two host fetches a batch.  The
+  reference's pow2 lane classes, pair cap and fallbacks served XLA's
+  static shapes and are not carried over: a batchable structure always
+  takes the batch, and a failure raises.
 * ``search_sub_sub`` (SearchSubSub, :2480-2946): the velocity density once
   over the particles of structures of at least MINSUBSIZE members, then per
   level: each structure's padded context (``_prep_class``), its background
@@ -29,15 +40,18 @@ see those rows.  The edge searches do not (padded rows are never
 outliers, never eligible, never tagged), so they, the core search and the
 unbind run on the structure's own rows; the padded bounds still set the
 cell grid, as they do in the reference.  Structures of one pad size share
-one batched context build and one outlier pass; the reference's vmapped
-subset batches are not carried over (the per-structure search gives the
-same ids).  The reference's environment switches are not ported.
+one batched context build and one outlier pass.  A pair's orientation
+(which end is the criterion's own side, where the speed-ratio test can
+differ in the last bit) is that of the structure's own cell order on its
+own padded bounds, in the batched search as in ``search_subset``; the
+reference's batch orients pairs on a grid over its lane class's joint
+bounds.  The reference's environment switches are not ported.
 
 With a mesh (``parallel/``), the density is sharded as x-slabs once the
 active set reaches ``distributed_localfield.DIST_DENSITY_MIN`` particles
 (approximative mode only), and each level's structures are dealt whole to
-the shards for the subset and core searches
-(``parallel/distributed_substructure.py``).
+the shards, each running one subset search over its structures and the
+core searches (``parallel/distributed_substructure.py``).
 """
 
 from __future__ import annotations
@@ -50,10 +64,12 @@ import numpy as np
 import torch
 
 from ..io import cache as cache_io
+from ..kernels._common import BIG_I32
 from ..ops import fof, segments as seg
 from ..utils import config as C
 from ..utils import telemetry
 from ..utils.timing import device_clock
+from ..utils.transfer import fetch_small
 from ..parallel import distributed_localfield
 from . import bgfield, localfield, unbind as unbind_mod
 
@@ -571,6 +587,269 @@ def merge_linked_groups(pos, vel, ell, pfof: torch.Tensor, ng: int,
 
 
 # ---------------------------------------------------------------------------
+# The subset search over many structures at once (reference
+# _search_subset_batch, substructure.py:844-1180)
+# ---------------------------------------------------------------------------
+
+_BATCHABLE = (C.FOFSTPROB, C.FOFSTPROBNN, C.FOFSTNOSUBSET, C.FOFSTPROBLX,
+              C.FOFSTPROBNNLX, C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN,
+              C.FOF6DSUBSET)
+
+
+def _batchable_subset(opt: C.Options) -> bool:
+    """Whether ``search_subset_batch`` serves the options (the reference's
+    condition): the iterative search, whose four passes all cut within
+    one reach, for every foftype but the stencil-reach FOFSTPROBNNNODIST,
+    whose candidate window is its criterion."""
+    return bool(opt.iiterflag) and opt.foftype in _BATCHABLE
+
+
+def _subset_preds(opt: C.Options):
+    """(pred0, pred_att, pred_att2, pred_merge) of the iterative search,
+    parameterised as ``search_subset`` does; the per-structure mass or
+    velocity scale of ScaleEll and FOF6DSUBSET rides the per-row field
+    ``scal`` (the ``*B`` criteria)."""
+    ellx2 = (opt.ellxscale * opt.ellphys) ** 2
+    vratio = opt.Vratio * opt.vfac
+    costh_it = math.cos(opt.thetaopen * math.pi * opt.thetafac)
+    thr0 = opt.ellthreshold * opt.ellfac
+    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
+        pred0 = StreamPredScaleEllB(ellx2, vratio, costh_it, thr0)
+    elif opt.foftype == C.FOF6DSUBSET:
+        pred0 = Pred6DOutlierB(ellx2, thr0)
+    else:
+        pred0 = subset_predicate(opt, ellx2, vratio, costh_it, thr0)
+    return (pred0,
+            StreamPredAttach(ellx2, vratio, costh_it, opt.ellthreshold),
+            StreamPredAttach(ellx2 * opt.ellxfac ** 2, vratio, costh_it,
+                             thr0),
+            StreamPred(ellx2, vratio, costh_it, thr0))
+
+
+def _structure_scal(opt: C.Options, vel, mass, sid, nsub, npad
+                    ) -> Optional[torch.Tensor]:
+    """(nseg,) float32 per-structure ``scal`` of the batched criteria, over
+    the reference's padded rows (zero mass and velocity) as
+    ``_padded_mean_var`` takes them: the mean mass (ScaleEll) or the mean
+    per-axis velocity variance times ellvel^2 (FOF6DSUBSET); None for the
+    other foftypes.  Sums are float64 sorted segment sums over the valid
+    rows (``sid``: each row's structure, non-decreasing), rounded to
+    float32 once, where numpy's float32 mean can differ in the last
+    bit."""
+    nseg = npad.shape[0]
+    npad = npad.double()
+    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
+        m = (seg.segment_sum(mass.double(), sid, nseg, presorted=True) /
+             npad).float()
+        return torch.where(torch.isfinite(m) & (m > 0), m, 1.0)
+    if opt.foftype != C.FOF6DSUBSET:
+        return None
+    v = vel.double()
+    mu = seg.segment_sum(v, sid, nseg, presorted=True) / npad[:, None]
+    dev2 = seg.segment_sum((v - mu[sid]) ** 2, sid, nseg, presorted=True) + \
+        (npad - nsub.double())[:, None] * mu * mu
+    var = (dev2 / npad[:, None]).float()
+    # numpy's mean of three float32 values: two sums, a true division
+    sv = (var[:, 0] + var[:, 1] + var[:, 2]) / torch.full_like(var[:, 0], 3.0)
+    sv = torch.where(torch.isfinite(sv) & (sv > 0), sv, 1.0)
+    return (sv.double() * opt.ellvel ** 2).float()
+
+
+def search_subset_batch(opt: C.Options, entries: List[dict],
+                        pair_budget: Optional[int] = None) -> None:
+    """``search_subset`` of many structures at once: fills ``e["sub"]``
+    (int64 ids in the structure's row order, 1..ng by size) and
+    ``e["ng_sub"]`` of every entry (``search_sub_sub``'s, with its valid
+    rows ``ppos``/``pvel``/``pmass``/``ell`` ``[:nsub]``, ``npad`` and
+    host ``bounds``).  Needs ``_batchable_subset(opt)``.
+
+    One cell sort of every structure's rows, keyed by (structure, cell)
+    on each structure's own grid over its padded bounds
+    (``fof.segmented_cells``), so a pair is oriented, and its links
+    evaluated, exactly as the per-structure search orients it.  The
+    structures then go in batches of whole structures whose candidate
+    slots fit ``pair_budget`` (default: ``cell_pairs``' budget, 2^24 on a
+    card, 2^22 on the host); one fetch of the per-structure candidate
+    totals sets them.  Each batch runs ``_subset_batch``: every pass on
+    ids offset by structure, at most two host fetches."""
+    if not entries:
+        return
+    if not _batchable_subset(opt):
+        raise ValueError(f"foftype {opt.foftype} with iiterflag "
+                         f"{opt.iiterflag} takes the per-structure search")
+    dev = entries[0]["ppos"].device
+    nsub = [int(e["nsub"]) for e in entries]
+
+    def rows(key):
+        return torch.cat([e[key][:e["nsub"]] for e in entries])
+
+    pos, vel, mass, ell = (rows(k) for k in ("ppos", "pvel", "pmass", "ell"))
+    reach = math.sqrt((opt.ellxscale * opt.ellphys) ** 2) * \
+        max(1.0, opt.ellxfac)
+    cells = fof.segmented_cells(pos, nsub, [e["bounds"] for e in entries],
+                                reach)
+    fields = {"ell": ell, "vel": vel}
+    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
+        fields["mass"] = mass
+    if opt.foftype in (C.FOFSTPROBLX, C.FOFSTPROBNNLX):
+        fields["pos"] = pos
+    scal = _structure_scal(opt, vel, mass, cells.seg,
+                           torch.tensor(nsub, device=dev),
+                           torch.tensor([e["npad"] for e in entries],
+                                        device=dev))
+    if scal is not None:
+        fields["scal"] = scal[cells.seg]
+    fields_s = {k: v[cells.order] for k, v in fields.items()}
+    totals = fetch_small(cells.candidates())
+    telemetry.count("subset_batch_candidates", int(totals.sum()))
+    budget = pair_budget or ((1 << 24) if dev.type == "cuda" else (1 << 22))
+    preds = _subset_preds(opt)
+    k0 = nbatch = 0
+    while k0 < len(entries):
+        k1, tot = k0 + 1, int(totals[k0])
+        while k1 < len(entries) and tot + int(totals[k1]) <= budget:
+            tot += int(totals[k1])
+            k1 += 1
+        _subset_batch(opt, entries, cells, fields_s, ell, k0, k1, preds,
+                      reach)
+        nbatch += 1
+        k0 = k1
+    telemetry.count("subset_batches", nbatch)
+
+
+def _subset_batch(opt: C.Options, entries: List[dict],
+                  cells: fof.SegmentedCells, fields_s, ell, k0: int,
+                  k1: int, preds, reach: float) -> None:
+    """The iterative subset search of structures k0..k1-1 (sorted rows
+    r0..r1-1): the in-reach pairs, the pred0 label fixed point and the
+    by-size renumbering per structure (a batch without a group ends
+    there), the other three criteria over the same pairs (the attach ones
+    both ways), the first attach, the cross-group link counts keyed by
+    (structure, i, j), one fetch of them and the host MergeGroups loop
+    per structure, the merge targets, the relaxed second attach, the
+    significance filter, the final renumbering per structure and one
+    fetch of the group counts.  Group ids run over the whole batch,
+    structure after structure, so no pass mixes two."""
+    dev = ell.device
+    nseg = k1 - k0
+    r0, r1 = int(cells.starts[k0]), int(cells.starts[k1])
+    n = r1 - r0
+    erow, ecol, d2 = cells.pairs(r0, r1, reach)
+    telemetry.count("subset_batch_pairs", int(erow.shape[0]))
+    fs = {k: v[r0:r1] for k, v in fields_s.items()}
+    own, nbr = fof._gather(fs, erow), fof._gather(fs, ecol)
+    pred0, pred_att, pred_att2, pred_merge = preds
+    m0 = pred0(d2, own, nbr)
+
+    order = cells.order[r0:r1] - r0            # sorted -> original row
+    sid = cells.seg[r0:r1] - k0                # structure of each row
+    first_row = torch.from_numpy(cells.starts[k0:k1] - r0).to(dev)
+    src = order - first_row[sid]               # row within its structure
+    labels = fof.fof_labels_from_edges(erow[m0], ecol[m0], n,
+                                       undirected=True)
+    sizes = torch.bincount(labels, minlength=n)
+    min_src = torch.full((n,), BIG_I32, dtype=torch.int64,
+                         device=dev).scatter_reduce_(0, labels, src, "amin")
+    minsize0 = max(2, int(opt.MinSize * opt.nminfac))
+    gid, _, ng0 = seg.renumber_segments(sid, sizes, min_src,
+                                        sizes >= minsize0, nseg)
+    ngrp = int(ng0.sum())
+    if ngrp == 0:
+        _fill_batch(entries, cells, k0, k1,
+                    torch.zeros(n, dtype=torch.int64, device=dev),
+                    np.zeros(nseg, np.int64))
+        return
+
+    def both_ways(pred):
+        mf, mb = pred(d2, own, nbr), pred(d2, nbr, own)
+        return (torch.cat([erow[mf], ecol[mb]]),
+                torch.cat([ecol[mf], erow[mb]]))
+
+    mm = pred_merge(d2, own, nbr)
+    em = (erow[mm], ecol[mm])
+    att1, att2 = both_ways(pred_att), both_ways(pred_att2)
+    del own, nbr, erow, ecol, d2, m0, mm
+    # the structure of each group id, and each structure's first id - 1
+    gkey = torch.cat([ng0.new_zeros(1), torch.repeat_interleave(
+        torch.arange(nseg, device=dev), ng0, output_size=ngrp)])
+    gbase = torch.cumsum(ng0, 0) - ng0
+    lab1 = fof.attach_rounds(gid[labels], *att1, 16)
+    sizes1 = torch.bincount(lab1, minlength=ngrp + 1)
+    gi, gj = lab1[em[0]], lab1[em[1]]
+    gi, gj = torch.cat([gi, gj]), torch.cat([gj, gi])
+    key = gkey[gi]
+    pk, pi, pj, pc = seg.pair_counts(gi - gbase[key], gj - gbase[key],
+                                     (gi > 0) & (gj > 0) & (gi != gj), key)
+    ng0_h, pk, pi, pj, pc, szj = fetch_small(
+        (ng0, pk, pi, pj, pc, sizes1[gbase[pk] + pj]))
+    target = torch.from_numpy(_merge_targets(opt, ng0_h, pk, pi, pj, pc,
+                                             szj)).to(dev)
+    lab2 = fof.attach_rounds(target[lab1], *att2, 16)
+    pfof = significance_filter(ell[r0:r1], _scatter_back(lab2, order), ngrp,
+                               opt.ellthreshold, opt.siglevel, opt.MinSize)
+    sizes = torch.bincount(pfof, minlength=ngrp + 1)
+    ids = torch.arange(ngrp + 1, device=dev)
+    _, local, ngf = seg.renumber_segments(
+        gkey, sizes, ids, (sizes >= opt.MinSize) & (ids > 0), nseg)
+    _fill_batch(entries, cells, k0, k1, local[pfof], fetch_small(ngf))
+
+
+def _merge_targets(opt: C.Options, ng0, pk, pi, pj, pc, szj) -> np.ndarray:
+    """The batch's merge map over its group ids: per structure the
+    reference's MergeGroups loop (``merge_linked_groups``) over its
+    lexicographic (i, j) link pairs in local ids: j joins i when their
+    links outnumber fmerge x (j's size after the first attach), unless
+    either was absorbed.  A pair under the float64 threshold never merges
+    whatever came before, so only the others are walked."""
+    base = np.cumsum(ng0) - ng0
+    target = np.arange(int(ng0.sum()) + 1)
+    strong = pc > opt.fmerge * szj.astype(np.float64)
+    for s in np.unique(pk[strong]):
+        sel = strong & (pk == s)
+        absorbed = np.zeros(ng0[s] + 1, bool)
+        tgt = np.arange(ng0[s] + 1)
+        for i, j in zip(pi[sel], pj[sel]):
+            if absorbed[i] or absorbed[j]:
+                continue
+            absorbed[j] = True
+            tgt[tgt == j] = i
+        target[base[s] + 1:base[s] + ng0[s] + 1] = base[s] + tgt[1:]
+    return target
+
+
+def _fill_batch(entries: List[dict], cells: fof.SegmentedCells, k0: int,
+                k1: int, sub: torch.Tensor, ng: np.ndarray) -> None:
+    """Each structure's ids (a view of the batch's, rows in their order)
+    and group count."""
+    r0 = int(cells.starts[k0])
+    for k in range(k0, k1):
+        a = int(cells.starts[k]) - r0
+        entries[k]["sub"] = sub[a:a + entries[k]["nsub"]]
+        entries[k]["ng_sub"] = int(ng[k - k0])
+
+
+def search_level_subsets(opt: C.Options, entries: List[dict]) -> None:
+    """The subset search of a level's structures (``search_sub_sub``'s
+    entries): ``search_subset_batch`` whenever ``_batchable_subset``
+    holds, else ``search_subset`` structure by structure.  Counts
+    ``subset_batched_*`` / ``subset_sequential_*`` structures and padded
+    particles in ``utils/telemetry``, as the reference does."""
+    if _batchable_subset(opt):
+        search_subset_batch(opt, entries)
+        telemetry.count("subset_batched_structures", len(entries))
+        telemetry.count("subset_batched_particles",
+                        sum(e["npad"] for e in entries))
+        return
+    for e in entries:
+        nsub = e["nsub"]
+        e["sub"], e["ng_sub"] = search_subset(
+            opt, e["ppos"][:nsub], e["pvel"][:nsub], e["pmass"][:nsub],
+            e["ell"][:nsub], bounds=e["bounds"], npad=e["npad"])
+        telemetry.count("subset_sequential_structures")
+        telemetry.count("subset_sequential_particles", e["npad"])
+
+
+# ---------------------------------------------------------------------------
 # Host phase merges (reference MergeSubstructures*, search.cxx:2146-2480)
 # ---------------------------------------------------------------------------
 
@@ -1037,13 +1316,7 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
 
             distributed_structure_search(opt, prep, level, cores_on, mesh)
         else:
-            for e in prep:
-                nsub = e["nsub"]
-                sub, ng_sub = search_subset(
-                    opt, e["ppos"][:nsub], e["pvel"][:nsub],
-                    e["pmass"][:nsub], e["ell"][:nsub], bounds=e["bounds"],
-                    npad=e["npad"])
-                e["sub"], e["ng_sub"] = sub, ng_sub
+            search_level_subsets(opt, prep)
             laps.lap("subset")
             for e in prep:
                 _cores_and_merges(opt, e, level, cores_on)

@@ -11,7 +11,7 @@ the periodic grid, whose coordinates wrap.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +92,42 @@ def cell_coords(pos: torch.Tensor, grid: CellGrid,
     if periodic:
         return torch.remainder(c, nc)
     return torch.minimum(torch.clamp(c, min=0), nc - 1)
+
+
+def bin_segments(pos: torch.Tensor, seg: torch.Tensor,
+                 grids: Sequence[CellGrid]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, CellGrid]:
+    """``bin_particles`` for many disjoint point sets at once: row i
+    belongs to set ``seg[i]`` (non-decreasing) and is binned on that
+    set's open grid ``grids[seg[i]]``, its cell coordinates computed as
+    ``cell_coords`` computes them.  The sets lie side by side along x in
+    one grid (set s at x offset sum over t < s of nx_t + 1, so an empty
+    x column separates two sets and no 27-cell stencil reaches from one
+    into another; ny and nz the largest of the sets').  Returns (order,
+    cid_sorted, that grid): the stable sort by (set, cell) -- within a
+    set, the order ``bin_particles`` gives on its own grid, since both
+    sort lexicographically by (cx, cy, cz)."""
+    dev = pos.device
+    nc_h = np.array([g.ncells for g in grids], np.int64).reshape(-1, 3)
+    xoff = np.concatenate([[0], np.cumsum(nc_h[:, 0] + 1)[:-1]])
+    shape = (int(nc_h[:, 0].sum() + len(grids)), int(nc_h[:, 1].max()),
+             int(nc_h[:, 2].max()))
+    if float(np.prod(np.array(shape, np.float64))) > MAX_TOTAL_CELLS:
+        raise ValueError(f"{len(grids)} cell grids side by side need "
+                         f"{shape} cells, over {MAX_TOTAL_CELLS}")
+    joint = CellGrid(ncells=shape, origin=(0.0, 0.0, 0.0),
+                     width=(1.0, 1.0, 1.0))
+    origin = torch.tensor(np.array([g.origin for g in grids]),
+                          dtype=pos.dtype, device=dev)[seg]
+    width = torch.tensor(np.array([g.width for g in grids]),
+                         dtype=pos.dtype, device=dev)[seg]
+    nc = torch.from_numpy(nc_h).to(dev)[seg]
+    c = torch.floor((pos - origin) / width).long()
+    c = torch.minimum(torch.clamp(c, min=0), nc - 1)
+    c[:, 0] += torch.from_numpy(xoff).to(dev)[seg]
+    cid = pack_cells(c, joint)
+    order = torch.argsort(cid, stable=True)
+    return order, cid[order], joint
 
 
 def pack_cells(coords: torch.Tensor, grid: CellGrid) -> torch.Tensor:

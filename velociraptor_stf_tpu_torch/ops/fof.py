@@ -17,6 +17,11 @@ array exists.  Squared separations come from coordinate differences, the
 minimum image in a periodic box, summed x, y, z in order, as the
 reference's ``_pair_d2_bcast`` rounds them.
 
+``segmented_cells`` sorts many disjoint point sets at once, each on its
+own grid, keyed by (set, cell), so one expansion serves a batch of sets
+without a pair between two of them (the recursion's batched subset
+search).
+
 The reference's dense and half prefix tables, slab windows, fused builders
 and power-of-two pads served its fixed shapes and are not carried over;
 shapes here are exact.  Index tensors are int64; group ids are returned as
@@ -34,7 +39,8 @@ import torch
 
 from ..kernels._common import BIG_I32, cell_pairs
 from . import segments as seg
-from .cells import (CellGrid, bin_particles, build_grid, unpack_cells)
+from .cells import (CellGrid, bin_particles, bin_segments, build_grid,
+                    unpack_cells)
 from .fof_sweep import _fixpoint, renumber_roots
 from .so import point_windows_dense
 
@@ -235,6 +241,74 @@ def build_edges(pos: torch.Tensor, linking_length: float,
     return FlatEdges(torch.cat(erows) if erows else empty,
                      torch.cat(ecols) if ecols else empty, n, order, pos_s,
                      fields_s, box, undirected=half)
+
+
+@dataclasses.dataclass
+class SegmentedCells:
+    """Many disjoint point sets (segments) in one cell sort: the rows of
+    segment s are rows ``starts[s]:starts[s + 1]`` both before and after
+    the sort, and within a segment the sorted order, windows and pairs are
+    those ``build_edges`` gives on that segment alone over its own
+    ``bounds`` (``cells.bin_segments``).  No window reaches across
+    segments, so no pair joins two of them."""
+
+    order: torch.Tensor       # (n,) sorted -> original row
+    seg: torch.Tensor         # (n,) int64 segment of each row (either order)
+    pos_s: torch.Tensor       # (n, 3) sorted positions
+    cell: torch.Tensor        # (n,) int64 occupied cell of each sorted row
+    win: torch.Tensor         # (ncell, 9, 2) int32 windows into sorted rows
+    starts: np.ndarray        # (nseg + 1,) host first row of each segment
+
+    def candidates(self) -> torch.Tensor:
+        """(nseg,) int64 candidate slots per segment: every (row, column)
+        of the rows' windows, the slots ``build_edges`` expands."""
+        per_row = self.win[:, :, 1].long().sum(1)[self.cell]
+        cum = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)])
+        ends = torch.from_numpy(self.starts).to(cum.device)
+        return cum[ends[1:]] - cum[ends[:-1]]
+
+    def pairs(self, r0: int, r1: int, reach: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(erow, ecol, d2): each pair of the sorted rows [r0, r1) within
+        ``reach`` once (column after row, as ``build_edges``' each-pair-
+        once form), indices relative to r0, open-boundary separations.
+        [r0, r1) must hold whole segments."""
+        pred = Pred3D(reach * reach)
+        rows, cols, d2s = [], [], []
+        for row, col in cell_pairs(self.cell[r0:r1], self.win):
+            row = row + r0
+            fwd = col > row
+            row, col = row[fwd], col[fwd]
+            d2 = pair_d2(self.pos_s[row], self.pos_s[col], None)
+            ok = pred(d2, {}, {})
+            rows.append(row[ok] - r0)
+            cols.append(col[ok] - r0)
+            d2s.append(d2[ok])
+        if not rows:
+            e = torch.zeros(0, dtype=torch.int64, device=self.pos_s.device)
+            return e, e, self.pos_s.new_zeros(0)
+        return torch.cat(rows), torch.cat(cols), torch.cat(d2s)
+
+
+def segmented_cells(pos: torch.Tensor, counts: Sequence[int],
+                    bounds: Sequence[Tuple[np.ndarray, np.ndarray]],
+                    cellwidth: float) -> SegmentedCells:
+    """One cell sort of consecutive point sets of ``counts`` rows each,
+    set s over its own open grid of cells at least ``cellwidth`` wide on
+    ``bounds[s]`` (host (lo, hi)), with the 27-cell windows of every
+    occupied cell."""
+    dev = pos.device
+    counts = np.asarray(counts, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    seg = torch.repeat_interleave(
+        torch.arange(len(counts), device=dev),
+        torch.from_numpy(counts).to(dev), output_size=int(starts[-1]))
+    grids = [pair_grid([], cellwidth, None, b) for b in bounds]
+    order, cid, joint = bin_segments(pos, seg, grids)
+    cell, win = stencil_windows(cid, cid, joint, False)
+    # open grids: the nine periodic z-wrap windows are empty
+    return SegmentedCells(order, seg, pos[order], cell,
+                          win[:, :9].contiguous(), starts)
 
 
 def refine_edge_mask(pos_s: torch.Tensor, fields_s: Fields,

@@ -10,14 +10,18 @@ round identically, and on a GPU the result does not depend on the run
 segment lies in the array (each is reduced from an aligned start).
 Where the reference compacts with padded capacities (``compact_mask``,
 ``gather_rows``), the port indexes with ``torch.nonzero`` and plain
-gathers.
+gathers.  ``pair_counts`` and ``renumber_segments`` take a segment key
+(the structure of a row in the recursion's batched subset search), so one
+sort serves every structure of a batch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from ..utils.transfer import fetch_small
 
 
 def pad_class(x: int, lo: int = 1024, align: int = 1024) -> int:
@@ -204,24 +208,65 @@ def smallest_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return i
 
 
-def pair_counts_sparse(gi: torch.Tensor, gj: torch.Tensor,
-                       mask: torch.Tensor):
-    """The distinct (i, j) pairs among the masked index pairs, in
-    lexicographic order, and how often each occurs, as host numpy arrays
-    (reference ``pair_counts_sparse``: the sparse stand-in for a dense
-    (ng+1)^2 link-count table, MergeGroups search.cxx:3894+)."""
+def pair_counts(gi: torch.Tensor, gj: torch.Tensor, mask: torch.Tensor,
+                key: Optional[torch.Tensor] = None):
+    """The distinct (key, i, j) triples among the masked index pairs, in
+    lexicographic order, and how often each occurs: (key or None, i, j,
+    counts) int64 tensors on the inputs' device.  ``key`` (the structure
+    of each pair in a segmented batch) sorts before i and j, so each
+    structure's pairs come out together in their own (i, j) order."""
     a, b = gi[mask].long(), gj[mask].long()
-    if a.shape[0] == 0:
-        z = torch.zeros(0, dtype=torch.int64)
-        return z.numpy(), z.numpy(), z.numpy()
+    k = None if key is None else key[mask].long()
     order = lexsort2(b, a)
+    if k is not None:
+        order = order[torch.argsort(k[order], stable=True)]
+        k = k[order]
     a, b = a[order], b[order]
     first = torch.ones_like(a, dtype=torch.bool)
     first[1:] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
+    if k is not None:
+        first[1:] |= k[1:] != k[:-1]
     starts = torch.nonzero(first).squeeze(1)
     ends = torch.cat([starts[1:], starts.new_tensor([a.shape[0]])])
-    return (a[starts].cpu().numpy(), b[starts].cpu().numpy(),
-            (ends - starts).cpu().numpy())
+    return (None if k is None else k[starts], a[starts], b[starts],
+            ends - starts)
+
+
+def pair_counts_sparse(gi: torch.Tensor, gj: torch.Tensor,
+                       mask: torch.Tensor,
+                       key: Optional[torch.Tensor] = None):
+    """``pair_counts`` as host numpy arrays, in one fetch: (i, j, counts),
+    or (key, i, j, counts) with a ``key`` (reference
+    ``pair_counts_sparse``: the sparse stand-in for a dense (ng+1)^2
+    link-count table, MergeGroups search.cxx:3894+)."""
+    k, a, b, c = pair_counts(gi, gj, mask, key)
+    return fetch_small((a, b, c) if k is None else (k, a, b, c))
+
+
+def renumber_segments(key: torch.Tensor, size: torch.Tensor,
+                      tie: torch.Tensor, eligible: torch.Tensor,
+                      nseg: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The by-size renumbering of groups that each belong to one segment
+    (a structure of a segmented batch): the ``eligible`` items ranked by
+    (``key``, decreasing ``size``, increasing ``tie``).  Returns (gid,
+    local, counts): per item its 1-based rank over all segments and
+    within its own (0 when not eligible), and the (nseg,) eligible count
+    of each segment.  Within a segment this is ``renumber_by_size``'s and
+    ``_renumber_ids``' order, ties by the lower ``tie``."""
+    idx = torch.nonzero(eligible).squeeze(1)
+    o = torch.argsort(tie[idx], stable=True)
+    o = o[torch.argsort(-size[idx][o], stable=True)]
+    o = o[torch.argsort(key[idx][o], stable=True)]
+    sel = idx[o]
+    ksel = key[sel].long()
+    counts = torch.bincount(ksel, minlength=nseg)
+    rank = torch.arange(sel.shape[0], device=key.device)
+    gid = torch.zeros(key.shape[0], dtype=torch.int64, device=key.device)
+    gid[sel] = rank + 1
+    local = torch.zeros_like(gid)
+    local[sel] = rank - (torch.cumsum(counts, 0) - counts)[ksel] + 1
+    return gid, local, counts
 
 
 def segment_argmin(values: torch.Tensor, seg: torch.Tensor,

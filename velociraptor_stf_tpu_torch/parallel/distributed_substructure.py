@@ -1,15 +1,18 @@
 """The substructure recursion's per-structure searches over a mesh (port
-of velociraptor_stf_tpu/parallel/distributed_substructure.py), the
-analog of the reference's SearchSubSub with whole halos per rank
-(search.cxx:2480-2946): structures are independent, so sharding is data
-placement.
+of velociraptor_stf_tpu/parallel/distributed_substructure.py,
+``distributed_subset_batch``), the analog of the reference's SearchSubSub
+with whole halos per rank (search.cxx:2480-2946): structures are
+independent, so sharding is data placement.
 
 The structures of a level are dealt whole to the shards by serpentine
-LPT on their sizes (``grouppack.assign_groups_lpt``); each shard runs
-``search_subset`` and the merger-core search
-(``models/substructure.py::_cores_and_merges``) on its own structures,
-and their candidate ids come back to the home device.  The splice keeps
-the single-device order, so ids and hierarchy come out the same.
+LPT on their sizes (``grouppack.assign_groups_lpt``); each shard runs one
+subset search over all of its structures
+(``models/substructure.py::search_level_subsets``: the batched search,
+or the per-structure one where the options need it), then the
+merger-core search per structure (``_cores_and_merges``), and the
+candidate ids come back to the home device.  A structure's ids do not
+depend on the others it is searched with, and the splice keeps the
+single-device order, so ids and hierarchy come out the same.
 """
 
 from __future__ import annotations
@@ -39,17 +42,20 @@ def distributed_structure_search(opt: C.Options, prep: List[dict],
         return
     shard = assign_groups_lpt(np.array([0] + [e["nsub"] for e in prep]),
                               mesh.size)[1:]
-    for e, s in zip(prep, shard):
+    for s in range(mesh.size):
+        mine = [e for e, t in zip(prep, shard) if t == s]
+        if not mine:
+            continue
         d = mesh.devices[s]
-        local = dict(e)
-        local.update({k: col.move(e[k], d) for k in _ARRAYS})
-        col.count_reshard("substructure", [local[k] for k in _ARRAYS])
-        nsub = e["nsub"]
-        local["sub"], local["ng_sub"] = S.search_subset(
-            opt, local["ppos"][:nsub], local["pvel"][:nsub],
-            local["pmass"][:nsub], local["ell"][:nsub],
-            bounds=e["bounds"], npad=e["npad"])
-        S._cores_and_merges(opt, local, level, cores_on)
-        e["sub"] = col.move(local["sub"], mesh.home)
-        e["ng_sub"] = local["ng_sub"]
-        col.count_reshard("substructure", [e["sub"]])
+        local = []
+        for e in mine:
+            loc = dict(e)
+            loc.update({k: col.move(e[k], d) for k in _ARRAYS})
+            col.count_reshard("substructure", [loc[k] for k in _ARRAYS])
+            local.append(loc)
+        S.search_level_subsets(opt, local)
+        for e, loc in zip(mine, local):
+            S._cores_and_merges(opt, loc, level, cores_on)
+            e["sub"] = col.move(loc["sub"], mesh.home)
+            e["ng_sub"] = loc["ng_sub"]
+            col.count_reshard("substructure", [e["sub"]])

@@ -5,16 +5,18 @@ the port imports nothing of the JAX package.
 
 Equivalent of the reference's wall-clock instrumentation
 (``MyGetTime`` reference utilities.cxx:36 and the ``TIME::`` phase
-lines printed by main.cxx:247-534).  The JAX package's profiler trace
-context is not copied: it needs jax.  ``device_clock`` is the port's stage
-clock: it reads the host time after the card has finished its work.
+lines printed by main.cxx:247-534).  ``profile_trace`` is the JAX
+package's profiler context on ``torch.profiler`` (a Chrome trace in place
+of a jax.profiler trace).  ``device_clock`` is the port's stage clock: it
+reads the host time after the card has finished its work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict
+from pathlib import Path
+from typing import Callable, Dict, Optional
 
 
 class PhaseTimer:
@@ -57,3 +59,26 @@ def device_clock(device) -> Callable[[], float]:
             torch.cuda.synchronize(device)
         return time.perf_counter()
     return clock
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the block (the host, and the card
+    when one is present), written as Chrome trace JSON to ``logdir``
+    (created when missing; the CLI's ``VR_PROFILE=<dir>``); a no-op when
+    ``logdir`` is None."""
+    if logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(str(out / f"trace_{int(time.time() * 1e3)}"
+                                         ".json"))
