@@ -94,7 +94,21 @@ csrc`` and drives the port on the card, in phases:
    paths at 128^3 and the planted subhalos, mesh against one card (ids,
    hierarchy and association equal), the substructure path with the
    density sharded (field structures equal), and the sharded density
-   against one card's on the JAX test's statistics at 2^20 particles.
+   against one card's on the JAX test's statistics at 2^20 particles;
+11. every runnable config under ``examples/`` as a user runs it
+   (``cli.run`` after ``main``'s parsing and checks, binary catalogs; the
+   swift 3DFOF config through ``api.VelociraptorSession.invoke`` with
+   tensors on the card) on ``io/synthetic.py::example_snapshot`` at 128^3
+   uniform particles plus 64 planted hosts with subhalos and 256 small
+   halos (gas copies for the hydro configs, low-resolution particles for
+   the zoom one): stage times, group and substructure counts, peak
+   memory; every kernel launched over the six runs; the catalog, the
+   hierarchy, boundness where the config unbinds, the sampled baryon
+   association and the catalog files; for genesis the inclusive masses'
+   pre-splice ids and a mesh of four shards on the card equal to one
+   card; each config's ids and hierarchy on the CPU tests' input equal
+   on the card and in the plain versions on the host;
+   ``sample_zoom_run.cfg`` refused.
 
 Any failure exits non-zero.  The last line of stdout is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -113,6 +127,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 BOXSIZE = 100.0
 POT_RTOL = 1e-4
@@ -872,9 +887,13 @@ def _binary(np, path: Path, counts: int):
         buf[8 + 8 * counts:]
 
 
-def check_cli_files(np, out: str, ng: int, npart: int, nedges: int) -> None:
+def check_cli_files(np, out: str, ng: int, npart: int,
+                    nedges: Optional[int], hierarchy: bool = True,
+                    sizes_want=None) -> None:
     """Parse the binary .properties, .catalog_groups, .catalog_particles,
-    .hierarchy and .profiles of ``out`` and hold them to ``ng`` groups."""
+    .hierarchy (unless not ``hierarchy``) and .profiles (unless
+    ``nedges`` is None) of ``out`` and hold them to ``ng`` groups, each
+    of at least one member or of ``sizes_want`` members."""
     buf = Path(out + ".properties").read_bytes()
     if tuple(np.frombuffer(buf, np.int32, 2)) != (0, 1):
         raise AssertionError(".properties: bad header")
@@ -893,7 +912,9 @@ def check_cli_files(np, out: str, ng: int, npart: int, nedges: int) -> None:
     if c != ng or len(rest) != 24 * ng:
         raise AssertionError(f".catalog_groups: {c} groups")
     sizes, offs, _ = np.frombuffer(rest, np.int64).reshape(3, ng)
-    if (sizes < 1).any() or not np.array_equal(
+    small = (sizes < 1).any() if sizes_want is None else \
+        not np.array_equal(sizes, sizes_want)
+    if small or not np.array_equal(
             offs, np.concatenate([[0], np.cumsum(sizes)[:-1]])):
         raise AssertionError(".catalog_groups: sizes and offsets disagree")
     (npid, _), rest = _binary(np, Path(out + ".catalog_particles"), 2)
@@ -901,9 +922,12 @@ def check_cli_files(np, out: str, ng: int, npart: int, nedges: int) -> None:
     if npid != sizes.sum() or len(pids) != npid or pids.min() < 1 or \
             pids.max() > npart or len(np.unique(pids)) != npid:
         raise AssertionError(".catalog_particles: bad particle ids")
-    (c, _), rest = _binary(np, Path(out + ".hierarchy"), 2)
-    if c != ng or len(rest) != 16 * ng:
-        raise AssertionError(f".hierarchy: {c} groups")
+    if hierarchy:
+        (c, _), rest = _binary(np, Path(out + ".hierarchy"), 2)
+        if c != ng or len(rest) != 16 * ng:
+            raise AssertionError(f".hierarchy: {c} groups")
+    if nedges is None:
+        return
     hc, rest = _binary(np, Path(out + ".profiles"), 4)
     norm_nedges = np.frombuffer(rest, np.int32, 2)
     nb = nedges + 1
@@ -1149,6 +1173,21 @@ def check_association(torch, np, dev, opt, pos, vel, mass, ptype) -> str:
             f"tagged DM, ellx {ellx:.5f}, ellv2 {ellv2:.6g}")
 
 
+def unbound_members(np, frame, mass, vel, W, eratio: float):
+    """Members of each frame id > 0 that are not bound in the frame of
+    that set's mass-weighted mean velocity: Eratio * T + W > 1e-4 |W|
+    (the ejection loop carries its sums in float32)."""
+    m64, v64 = mass.astype(np.float64), vel.astype(np.float64)
+    nf = int(frame.max()) + 1
+    gm = np.bincount(frame, weights=m64, minlength=nf)
+    vcm = np.stack([np.bincount(frame, weights=m64 * v64[:, k],
+                                minlength=nf) for k in range(3)], 1)
+    vcm /= np.maximum(gm, 1e-30)[:, None]
+    T = 0.5 * m64 * ((v64 - vcm[frame]) ** 2).sum(1)
+    W64 = W.astype(np.float64)
+    return (frame > 0) & (eratio * T + W64 > 1e-4 * np.abs(W64))
+
+
 def check_hydro_catalog(np, res, mass, vel, ptype, eratio: float) -> str:
     """The hydro catalog against float64 numpy on the returned arrays:
     per group n_gas + n_star + n_bh + its DM count == num; M_gas_sf +
@@ -1180,16 +1219,8 @@ def check_hydro_catalog(np, res, mass, vel, ptype, eratio: float) -> str:
               "q_gas", "Krot_star", "M_200crit_gas"):
         if not np.isfinite(pr[k]).all():
             raise AssertionError(f"hydro catalog: {k} not finite")
-    m64, v64 = mass.astype(np.float64), vel.astype(np.float64)
-    gm = np.bincount(pfof, weights=m64, minlength=ng + 1)
-    vcm = np.stack([np.bincount(pfof, weights=m64 * v64[:, k],
-                                minlength=ng + 1) for k in range(3)], 1)
-    vcm /= np.maximum(gm, 1e-30)[:, None]
-    T = 0.5 * m64 * ((v64 - vcm[pfof]) ** 2).sum(1)
-    W = res.W.astype(np.float64)
-    E = eratio * T + W
     ing = pfof > 0
-    loose = ing & (E > 1e-4 * np.abs(W))
+    loose = unbound_members(np, pfof, mass, vel, res.W, eratio)
     if loose.any():
         raise AssertionError(
             f"hydro catalog: {int(loose.sum())} grouped particles "
@@ -1297,10 +1328,15 @@ def sub_options(n: int, C, cfg_path: Path):
     return slice_options(n, C, BOXSIZE, cfg_path)
 
 
-def check_hierarchy(np, res, maxlevel: int) -> int:
+def check_hierarchy(np, res, maxlevel: int, orphans: bool = False) -> int:
     """Parents in range and never the group itself, level = parent's
     level + 1 (0 for field structures), hostid the top ancestor (-1 for
-    field structures), no cycle.  Returns the deepest level."""
+    field structures), no cycle.  ``orphans``: a substructure whose parent
+    the combined unbind of a baryon search dissolved keeps its level with
+    parent 0, and its hostid is 0 where that unbind dissolved its host
+    too, else the host, a field structure; its own substructures share
+    its hostid (``models/pipeline.py::_remap_hierarchy``, as in the JAX
+    package).  Returns the deepest level."""
     ng = res.ngroups
     parent, host, level = (np.asarray(a, np.int64) for a in (
         res.parent, res.hostid, res.hierarchy_level))
@@ -1310,8 +1346,11 @@ def check_hierarchy(np, res, maxlevel: int) -> int:
     p = parent[1:]
     if ((p < 0) | (p > ng) | (p == g)).any():
         raise AssertionError("hierarchy: parent out of range or itself")
+    orphan = np.zeros(ng + 1, bool)
+    if orphans:
+        orphan[1:] = (p == 0) & (level[1:] > 0)
     want_level = np.where(p > 0, level[np.maximum(p, 0)] + 1, 0)
-    if not np.array_equal(level[1:], want_level):
+    if not np.array_equal(level[1:][~orphan[1:]], want_level[~orphan[1:]]):
         raise AssertionError("hierarchy: level != parent's level + 1")
     top = g.copy()
     for _ in range(maxlevel + 2):
@@ -1320,7 +1359,13 @@ def check_hierarchy(np, res, maxlevel: int) -> int:
     if (parent[top] > 0).any():
         raise AssertionError("hierarchy: a cycle (no top after "
                              f"{maxlevel + 2} steps)")
-    if not np.array_equal(host[1:], np.where(top == g, -1, top)):
+    oh = host[orphan]
+    if ((oh != 0) & ((oh < 0) | (oh > ng) | (parent[np.clip(oh, 0, ng)] > 0)
+                     | (level[np.clip(oh, 0, ng)] > 0))).any():
+        raise AssertionError("hierarchy: an orphan's host is no field "
+                             "structure")
+    want_host = np.where(orphan[top], host[top], np.where(top == g, -1, top))
+    if not np.array_equal(host[1:], want_host):
         raise AssertionError("hierarchy: hostid is not the top ancestor")
     return int(level.max())
 
@@ -1331,18 +1376,10 @@ def check_bound_tops(np, res, mass, vel, eratio: float) -> int:
     the frame of that set's mean velocity: Eratio * T + W < 0, to 1e-4
     |W| (the ejection loop carries its sums in float32).  Returns the
     members checked."""
-    ng = res.ngroups
     g = res.pfof.astype(np.int64)
     host = np.asarray(res.hostid, np.int64)
     top = np.where(g > 0, np.where(host[g] > 0, host[g], g), 0)
-    m64, v64 = mass.astype(np.float64), vel.astype(np.float64)
-    gm = np.bincount(top, weights=m64, minlength=ng + 1)
-    vcm = np.stack([np.bincount(top, weights=m64 * v64[:, k],
-                                minlength=ng + 1) for k in range(3)], 1)
-    vcm /= np.maximum(gm, 1e-30)[:, None]
-    T = 0.5 * m64 * ((v64 - vcm[top]) ** 2).sum(1)
-    W = res.W.astype(np.float64)
-    loose = (top > 0) & (eratio * T + W > 1e-4 * np.abs(W))
+    loose = unbound_members(np, top, mass, vel, res.W, eratio)
     if loose.any():
         raise AssertionError(f"substructure path: {int(loose.sum())} "
                              "members of top-level structures unbound")
@@ -1833,6 +1870,295 @@ def mesh_case(torch, np, dev, C, kernels, pos, vel, mass, n: int, want,
             f"{dt:.3f} s")
 
 
+EXAMPLE_BOX = 100.0
+EXAMPLE_N = 128 ** 3        # phase 11's uniform background particles
+# phase 11's planted hosts (4^3 on a lattice 20 apart, a subhalo each),
+# small halos and zoom low-resolution particles at EXAMPLE_N
+EXAMPLE_BIG = dict(nhosts=64, nbg=EXAMPLE_N, boxsize=EXAMPLE_BOX,
+                   spacing=20.0, nsmall=256, seed=40)
+EXAMPLE_BIG_LOWRES = 65536
+# the CPU tests' input (tests/test_torch_examples_dm.py::SNAPSHOT)
+EXAMPLE_SMALL = dict(nhosts=1, nbg=8192, boxsize=19.0)
+EXAMPLE_SMALL_LOWRES = 256
+# each runnable config under examples/, its input and the route a user
+# drives it by (the swift 3D config through the library API, as
+# tests/test_examples.py runs it)
+EXAMPLE_CONFIGS = (
+    ("sample_dmcosmological_run.cfg", "dm", "cli"),
+    ("genesis2019_configuration.cfg", "dm", "cli"),
+    ("sample_eaglehydro_6dfof_subhalo.cfg", "hydro", "cli"),
+    ("sample_swifthydro_6dfof_subhalo.cfg", "hydro", "cli"),
+    ("sample_swifthydro_3dfof_subhalo.cfg", "hydro", "api"),
+    ("sample_zoomhydrocosmological_run.cfg", "zoom", "cli"),
+)
+EXAMPLE_REFUSED = "sample_zoom_run.cfg"
+
+
+def example_particles(np, kind: str, big: bool):
+    """(pos, vel, mass, ptype, box) of phase 11's input of ``kind``."""
+    from velociraptor_stf_tpu_torch.io.synthetic import example_snapshot
+
+    kw = dict(EXAMPLE_BIG if big else EXAMPLE_SMALL)
+    if kind == "zoom":
+        kw["nlowres"] = EXAMPLE_BIG_LOWRES if big else EXAMPLE_SMALL_LOWRES
+    pos, vel, mass, ptype = example_snapshot(kind, **kw)
+    return pos, vel, mass, ptype, kw["boxsize"]
+
+
+def write_example(np, path: Path, parts) -> str:
+    from velociraptor_stf_tpu_torch.io import gadget
+
+    pos, vel, mass, ptype, box = parts
+    gadget.write_gadget(str(path), pos, vel, np.arange(1, len(pos) + 1),
+                        ptype, mass, boxsize=box, time=1.0, omega0=0.3,
+                        omega_lambda=0.7, hubble=0.7)
+    return str(path)
+
+
+class ApiCatalog:
+    """What ``invoke`` returns, with the hierarchy's levels derived from
+    the parents (the API returns no levels and no potentials): a field
+    structure is at level 0, a substructure whose parent the combined
+    unbind dissolved (parent 0, hostid not -1) at level 1."""
+
+    def __init__(self, np, out: dict):
+        self.pfof = np.asarray(out["group_id"])
+        self.ngroups = int(out["ngroups"])
+        self.props = out["properties"]
+        self.hostid = np.asarray(out["hostid"])
+        self.parent = np.asarray(out["parent"], np.int64)
+        level = np.where((self.parent == 0) & (self.hostid >= 0), 1, 0)
+        level[0] = 0
+        for _ in range(len(level)):
+            nxt = np.where(self.parent > 0, level[self.parent] + 1, level)
+            if np.array_equal(nxt, level):
+                break
+            level = nxt
+        self.hierarchy_level = level.astype(np.int32)
+        self.W, self.timings = None, {}
+
+
+def run_example(torch, np, dev, C, name: str, route: str, snap: str,
+                parts, out: str):
+    """One config as a user drives it: the CLI's run (``cli.run`` after
+    ``main``'s parsing and checks) on the gadget snapshot, or the library
+    API on the particles as tensors on ``dev``.  The config is used as
+    shipped apart from its input and output names and binary catalogs
+    (the card's machine has no h5py).  Returns (catalog, options,
+    (pos, vel, mass, ptype) as the search saw them)."""
+    from velociraptor_stf_tpu_torch import api, cli
+
+    cfg = str(REPO / "examples" / name)
+    if route == "cli":
+        opt = C.parse_config_file(cfg)
+        opt.fname, opt.inputtype, opt.outname = snap, C.IOGADGET, out
+        opt.ibinaryout = C.OUTBINARY
+        C.config_check(opt, strict=True)
+        res = cli.run(opt, device=dev)
+        pos, vel, _, ptype, mass, _, _ = cli.read_snapshot(opt)
+        return res, opt, (pos, vel, mass, ptype)
+    pos, vel, mass, ptype, box = parts
+    session = api.VelociraptorSession(config=cfg)
+    session.opt.ibinaryout = C.OUTBINARY
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (pos, vel, mass)]
+    n = len(pos)
+    got = session.invoke(
+        *t, pids=np.arange(1, n + 1), ptype=ptype,
+        sim=api.SimInfo(period=box, interparticlespacing=box / n ** (1 / 3),
+                        icosmologicalsim=1),
+        outname=out, write_output=True, device=dev)
+    return ApiCatalog(np, got), session.opt, (pos, vel, mass, ptype)
+
+
+def check_example_catalog(np, res, n: int) -> None:
+    """Ids 0..ngroups for every particle, ngroups + 1 rows of properties,
+    the bulk ones finite for every group with members (a substructure
+    can lose every member to the unbind, in the JAX package too: ROADMAP
+    queue 3), finite potentials where the run returns them."""
+    if res.pfof.shape != (n,) or res.ngroups <= 0:
+        raise AssertionError(f"examples: {res.ngroups} groups, ids of "
+                             f"shape {res.pfof.shape} for {n} particles")
+    sizes = np.bincount(res.pfof.astype(np.int64),
+                        minlength=res.ngroups + 1)
+    if sizes.shape[0] != res.ngroups + 1:
+        raise AssertionError("examples: group ids out of range")
+    for k, v in res.props.items():
+        if np.asarray(v).shape[0] != res.ngroups + 1:
+            raise AssertionError(f"examples: property {k} has "
+                                 f"{np.asarray(v).shape[0]} rows")
+    held = sizes > 0
+    for k in ("num", "gmass", "gcm", "gcmvel", "gsize", "gRhalfmass",
+              "gmaxvel", "gveldisp"):
+        if not np.isfinite(np.asarray(res.props[k])[held]).all():
+            raise AssertionError(f"examples: property {k} not finite")
+    if res.W is not None and not np.isfinite(res.W).all():
+        raise AssertionError("examples: non-finite W")
+
+
+def examples_case(torch, np, dev, C, kernels, report) -> None:
+    """Phase 11: every runnable config under examples/ on the card at
+    EXAMPLE_N uniform particles with planted subhalos (gas copies for the
+    hydro configs, low-resolution particles for the zoom config), as a
+    user runs it; its invariants; its ids and hierarchy on the CPU tests'
+    input against the plain versions on the host; genesis over a mesh of
+    four shards on the card against one card; the refused config."""
+    from velociraptor_stf_tpu_torch import cli
+    from velociraptor_stf_tpu_torch.models.pipeline import (
+        find_structures, search_and_unbind)
+    from velociraptor_stf_tpu_torch.parallel.mesh import Mesh
+
+    tmp = Path(tempfile.mkdtemp(prefix="vr_examples_"))
+    try:
+        big, snaps = {}, {}
+        t0 = time.perf_counter()
+        for kind in ("dm", "hydro", "zoom"):
+            big[kind] = example_particles(np, kind, True)
+            snaps[kind] = write_example(np, tmp / f"{kind}.gdt", big[kind])
+        log(f"phase 11 inputs: " + ", ".join(
+            f"{k} {len(p[0])} particles ({int((p[3] == 0).sum())} gas, "
+            f"{int((p[3] == 2).sum())} low-resolution)"
+            for k, p in big.items()) +
+            f"; written in {time.perf_counter() - t0:.1f} s")
+
+        # every config once at full width; the kernels' counts over these
+        # runs only
+        kernels.reset_launches()
+        runs = {}
+        for name, kind, route in EXAMPLE_CONFIGS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = str(tmp / name.split(".")[0])
+            t0 = time.perf_counter()
+            res, opt, parts = run_example(torch, np, dev, C, name, route,
+                                          snaps[kind], big[kind], out)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[name] = (res, opt, parts, out, kind, route)
+            nsub = int((np.asarray(res.parent)[1:] > 0).sum())
+            st = {k: round(v, 4) for k, v in res.timings.items()}
+            log(f"phase 11 {name} ({route}): {res.ngroups} groups, {nsub} "
+                f"substructures, wall {wall:.3f} s, stages {json.dumps(st)}"
+                f", peak memory {peak:.2f} GiB")
+        counts = dict(kernels.LAUNCHES)
+        log(f"phase 11 launches over the six runs {json.dumps(counts)}")
+        missing = [k for k, v in counts.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"examples: kernels not launched "
+                                 f"{missing}")
+        for e in report:
+            e["launches_examples"] = counts[e["name"]]
+
+        for name, (res, opt, parts, out, kind, route) in runs.items():
+            pos, vel, mass, ptype = parts
+            check_example_catalog(np, res, len(pos))
+            deepest = check_hierarchy(np, res, C.MAXSUBLEVEL,
+                                      orphans=bool(opt.iBaryonSearch))
+            nsub = int((res.parent[1:] > 0).sum())
+            if nsub < 1:
+                raise AssertionError(f"{name}: no substructure found")
+            lone = int(((res.parent[1:] == 0) &
+                        (res.hierarchy_level[1:] > 0)).sum())
+            msg = [f"hierarchy to level {deepest}" + (
+                f", {lone} substructures whose parent the combined "
+                "unbind dissolved" if lone else "")]
+            if res.W is not None and opt.iBaryonSearch:
+                # every group is unbound once more in its own frame
+                loose = unbound_members(np, res.pfof.astype(np.int64), mass,
+                                        vel, res.W, opt.uinfo.Eratio)
+                if loose.any():
+                    raise AssertionError(f"{name}: {int(loose.sum())} "
+                                         "grouped particles unbound")
+                msg.append(f"all {int((res.pfof > 0).sum())} members bound")
+            elif res.W is not None and opt.iBoundHalos >= 1:
+                nb = check_bound_tops(np, res, mass, vel, opt.uinfo.Eratio)
+                msg.append(f"all {nb} members of top-level structures "
+                           "bound")
+            if opt.iBaryonSearch:
+                nb = int(((ptype != 1) & (res.pfof > 0)).sum())
+                subs = np.nonzero(res.parent[1:] > 0)[0] + 1
+                insub = int(np.isin(res.pfof[ptype == 0], subs).sum())
+                if not insub:
+                    raise AssertionError(f"{name}: no gas in a "
+                                         "substructure")
+                msg.append(f"{nb} baryons in groups, {insub} gas "
+                           "particles in substructures; " +
+                           check_association(torch, np, dev, opt, pos, vel,
+                                             mass, ptype))
+            if kind == "zoom":
+                nlr = int(((ptype == 2) & (res.pfof > 0)).sum())
+                if nlr < 1 or not (res.props["n_interloper"][1:] > 0).any():
+                    raise AssertionError(f"{name}: no interloper")
+                msg.append(f"{nlr} low-resolution particles in groups")
+            check_cli_files(np, out, res.ngroups, len(pos),
+                            len(opt.profile_bin_edges) if opt.iprofilecalc
+                            else None, hierarchy=route == "cli",
+                            sizes_want=np.bincount(
+                                res.pfof.astype(np.int64),
+                                minlength=res.ngroups + 1)[1:])
+            msg.append("catalog files parse")
+            if name.startswith("genesis"):
+                sres = search_and_unbind(opt, pos, vel, mass,
+                                         boxsize=EXAMPLE_BOX, device=dev)
+                top = int(sres.pfof_fof.max())
+                if not (0 < top <= sres.ngroups_fof < sres.ngroups):
+                    raise AssertionError(
+                        f"{name}: inclusive masses from ids up to {top} "
+                        f"against {sres.ngroups_fof} field halos")
+                msg.append(f"inclusive masses from the {sres.ngroups_fof} "
+                           f"field halos' ids (largest {top})")
+                t0 = time.perf_counter()
+                mres = find_structures(opt, pos, vel, mass,
+                                       boxsize=EXAMPLE_BOX,
+                                       mesh=Mesh((dev,) * MESH_SHARDS))
+                torch.cuda.synchronize()
+                msg.append(f"over {MESH_SHARDS} shards on the card "
+                           f"({time.perf_counter() - t0:.2f} s): " +
+                           check_mesh_catalog(np, mres, res, pos, vel, mass,
+                                              opt, f"{name} mesh"))
+                del mres, sres
+            log(f"phase 11 {name}: " + "; ".join(msg))
+        del runs
+
+        # the CPU tests' inputs: the card's ids and hierarchy are the plain
+        # versions' on the host
+        for name, kind, route in EXAMPLE_CONFIGS:
+            parts = example_particles(np, kind, False)
+            snap = write_example(np, tmp / f"{kind}_small.gdt", parts)
+            got, want = (run_example(torch, np, d, C, name, route, snap,
+                                     parts, str(tmp / f"small_{d.type}"))[0]
+                         for d in (dev, torch.device("cpu")))
+            same = got.ngroups == want.ngroups and \
+                np.array_equal(got.pfof, want.pfof) and all(
+                    np.array_equal(getattr(got, k), getattr(want, k))
+                    for k in ("hostid", "parent", "hierarchy_level"))
+            nsub = int((want.parent[1:] > 0).sum())
+            if not same or nsub < 1:
+                raise AssertionError(
+                    f"{name} on {len(parts[0])} particles: card "
+                    f"{got.ngroups} groups, host {want.ngroups}; "
+                    f"{int((got.pfof != want.pfof).sum())} ids differ; "
+                    f"{nsub} substructures")
+            log(f"phase 11 {name} at n={len(parts[0])}: {want.ngroups} "
+                f"groups, {nsub} substructures; ids, parent, hostid and "
+                "level equal on the card and on the CPU")
+
+        cfg = str(REPO / "examples" / EXAMPLE_REFUSED)
+        try:
+            cli.main(["-C", cfg, "-i", snaps["hydro"], "-o",
+                      str(tmp / "refused"), "--device", dev.type])
+        except ValueError as e:
+            if "Baryon_searchflag requires Particle_search_type" not in \
+                    str(e):
+                raise
+            log(f"phase 11 {EXAMPLE_REFUSED} refused: {e}")
+        else:
+            raise AssertionError(f"{EXAMPLE_REFUSED} was not refused")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def span_table(torch, targets, run, title: str, plain_ms: float,
                path: str) -> None:
     """A table of synchronised spans of one ``run()``: each of ``targets``
@@ -2238,6 +2564,10 @@ def main() -> int:
               report)
     del main_cat
     log(f"phase 10 mesh path: ok in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    examples_case(torch, np, dev, C, kernels, report)
+    log(f"phase 11 example configs: ok in {time.perf_counter() - t0:.1f} s")
     if args.profile:
         tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
         try:

@@ -234,3 +234,82 @@ def planted_subhalos(nhosts: int = 3, seed: int = 10, nhost: int = 3000,
     host = np.concatenate([np.full(len(p[0]), k + 1, np.int32)
                            for k, p in enumerate(parts)])
     return pos, vel, mass, host
+
+
+def example_snapshot(kind: str = "dm", nhosts: int = 3, nbg: int = 16384,
+                     boxsize: float = 24.0, spacing: float = 6.0,
+                     seed: int = 10, nhost: int = 3000, nsub: int = 400,
+                     sub_sigma: float = 3.0, nsmall: int = 24,
+                     nlowres: int = 2048, mass: float = 2.0 ** -5):
+    """Particles for the configs under ``examples/``: ``nhosts`` planted
+    hosts with a subhalo each (``host_with_subhalo`` with ``sub_sigma``,
+    seeds seed, seed+1, ...) on a cubic lattice ``spacing`` apart from
+    (spacing, spacing, spacing), ``nsmall`` small virialised halos of
+    40-300 particles at least 2 away from every host, and ``nbg``
+    uniform particles (velocities N(0, 50)) in a periodic box, all of
+    particle mass ``mass``.  ``kind`` "hydro" adds gas (type 0) copies of
+    a random sixth of all particles (positions + N(0, 0.005), mass / 8);
+    "zoom" adds to that ``nlowres`` uniform low-resolution particles
+    (type 2, 8x the mass, velocities N(0, 60)) and eight more inside each
+    host, at its velocity dispersion.  With the default masses, powers
+    of two, every float32 sum of masses is exact, so two codes that add
+    them in different orders agree.  Returns (pos, vel, mass) float32
+    and ptype int8."""
+    if kind not in ("dm", "hydro", "zoom"):
+        raise ValueError(f"unknown kind {kind!r}")
+    rng = np.random.default_rng(seed + 1000)
+    side = max(1, int(np.ceil(nhosts ** (1 / 3) - 1e-9)))
+    if spacing * (side + 0.5) > boxsize:
+        raise ValueError(f"{nhosts} hosts {spacing} apart do not fit a box "
+                         f"of {boxsize}")
+    parts = [host_with_subhalo(seed=seed + k, nhost=nhost, nsub=nsub,
+                               sub_sigma=sub_sigma) for k in range(nhosts)]
+    cells = np.arange(nhosts)
+    lattice = np.stack([cells % side, cells // side % side,
+                        cells // side ** 2], 1)
+    centres = (spacing * (lattice + 1)).astype(np.float32)
+    m0 = np.float32(mass)
+    pos = [p[0] + c for p, c in zip(parts, centres)]
+    vel = [p[1] for p in parts]
+    for _ in range(nsmall):
+        while True:
+            c = rng.uniform(1.0, boxsize - 1.0, 3)
+            if not nhosts or np.min(np.linalg.norm(centres - c, axis=1)) > 2:
+                break
+        k = int(rng.integers(40, 301))
+        rad = 0.15 * (k / 100.0) ** (1 / 3)
+        d = rng.normal(size=(k, 3))
+        d *= (rad * rng.uniform(size=k) ** 0.5 /
+              np.linalg.norm(d, axis=1))[:, None]
+        sig = np.sqrt(G_KMS * k * m0 / (6.0 * rad))
+        pos.append((c + d).astype(np.float32))
+        vel.append((rng.normal(0, 100.0, 3) +
+                    rng.normal(0, sig, (k, 3))).astype(np.float32))
+    pos.append(rng.uniform(0, boxsize, (nbg, 3)).astype(np.float32))
+    vel.append(rng.normal(0, 50.0, (nbg, 3)).astype(np.float32))
+    pos, vel = np.concatenate(pos), np.concatenate(vel)
+    mass = np.full(len(pos), m0, np.float32)
+    ptype = np.ones(len(pos), np.int8)
+    if kind != "dm":
+        g = rng.choice(len(pos), len(pos) // 6, replace=False)
+        gpos = np.mod(pos[g] + rng.normal(0, 0.005, (len(g), 3)),
+                      boxsize).astype(np.float32)
+        pos = np.concatenate([pos, gpos])
+        vel = np.concatenate([vel, vel[g]])
+        mass = np.concatenate([mass, mass[g] / np.float32(8)])
+        ptype = np.concatenate([ptype, np.zeros(len(g), np.int8)])
+    if kind == "zoom":
+        sigma = np.sqrt(G_KMS * 100.0 / 6.0)
+        inner = np.repeat(np.arange(nhosts), 8)
+        d = rng.normal(size=(len(inner), 3))
+        d *= (rng.uniform(0.1, 0.6, len(inner)) /
+              np.linalg.norm(d, axis=1))[:, None]
+        lpos = np.concatenate([rng.uniform(0, boxsize, (nlowres, 3)),
+                               centres[inner] + d]).astype(np.float32)
+        lvel = np.concatenate([rng.normal(0, 60.0, (nlowres, 3)),
+                               rng.normal(0, sigma, (len(inner), 3))])
+        pos = np.concatenate([pos, lpos])
+        vel = np.concatenate([vel, lvel.astype(np.float32)])
+        mass = np.concatenate([mass, np.full(len(lpos), 8 * m0, np.float32)])
+        ptype = np.concatenate([ptype, np.full(len(lpos), 2, np.int8)])
+    return pos, vel, mass, ptype

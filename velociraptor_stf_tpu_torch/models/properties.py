@@ -44,6 +44,19 @@ def _ssum(values: torch.Tensor, g: torch.Tensor, ng1: int) -> torch.Tensor:
     return seg.segment_sum(values, g, ng1, presorted=True)
 
 
+def _above_half(cum64: torch.Tensor, g_s: torch.Tensor, rows: torch.Tensor,
+                ng1: int, strict: bool = True) -> torch.Tensor:
+    """``rows`` whose float64 cumulative mass ``cum64`` (group-sorted,
+    non-decreasing in each group) exceeds (``strict``) or reaches half the
+    total over ``rows`` of their group.  The comparison stays in float64,
+    where the sums of float32 masses are exact, so a cumulative mass equal
+    to half the total is a tie that breaks the same way on every device
+    and in every layout (F5, ROADMAP queue 3)."""
+    half = 0.5 * torch.clamp_min(
+        seg.segment_max(torch.where(rows, cum64, 0.0), g_s, ng1), 0.0)
+    return ((cum64 > half[g_s]) if strict else (cum64 >= half[g_s])) & rows
+
+
 def _first_crossing(cond: torch.Tensor, g_s: torch.Tensor,
                     ng1: int) -> torch.Tensor:
     """Per group: smallest sorted index where ``cond`` holds, else n."""
@@ -70,8 +83,20 @@ def _eig_shape(iten: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def _sigma(disp: torch.Tensor) -> torch.Tensor:
-    return torch.pow(torch.clamp_min(torch.linalg.det(disp), 1e-30),
-                     1.0 / 6.0)
+    """det(disp)^(1/6) of (..., 3, 3) tensors, computed in float64 and
+    rounded once.  The determinant is the cofactor expansion, element by
+    element: a batched LU (``torch.linalg.det``) rounds a matrix
+    differently with the batch it is in, and the CPU's vectorised float32
+    ``pow`` differs from its scalar tail, so either would make a group's
+    value depend on how many groups a shard holds."""
+    a = disp.double()
+    det = a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] -
+                          a[..., 1, 2] * a[..., 2, 1]) - \
+        a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] -
+                        a[..., 1, 2] * a[..., 2, 0]) + \
+        a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] -
+                        a[..., 1, 1] * a[..., 2, 0])
+    return torch.pow(torch.clamp_min(det, 1e-30), 1.0 / 6.0).to(disp.dtype)
 
 
 def compute_properties(pos, vel, mass, pfof, num_groups: int, **kw
@@ -160,7 +185,8 @@ def _props_geom(pos, vel, mass, pfof, num_groups: int, *,
     m_s = m[perm]
     offsets = seg.group_offsets(g_s, num_groups)
     rank = seg.segment_rank(g_s, offsets)
-    Mcum = seg.segment_cumsum(m_s, g_s, offsets)
+    Mcum64 = seg.segment_cumsum(m_s, g_s, offsets, dtype=torch.float64)
+    Mcum = Mcum64.to(m_s.dtype)
     in_s = g_s > 0
     gsize = seg.segment_max(torch.where(in_s, r_s, 0.0), g_s, ng1)
     num_f = num.to(pos.dtype)
@@ -231,7 +257,7 @@ def _props_geom(pos, vel, mass, pfof, num_groups: int, *,
     props["gRmaxvel"] = torch.where(kmax < n, r_s[kmaxc], 0.0)
     props["gMmaxvel"] = torch.where(kmax < n, Mcum[kmaxc], 0.0)
 
-    khalf = _first_crossing((Mcum > 0.5 * gmass[g_s]) & in_s, g_s, ng1)
+    khalf = _first_crossing(_above_half(Mcum64, g_s, in_s, ng1), g_s, ng1)
     props["gRhalfmass"] = torch.where(khalf < n,
                                       r_s[torch.clamp_max(khalf, n - 1)], 0.0)
     k2h = _first_crossing((r_s > 2.0 * props["gRhalfmass"][g_s]) & in_s,
@@ -341,7 +367,7 @@ def _apertures(pos, vel, mass, pfof, num_groups: int, *, refpos, refvel,
         r_sr = torch.sqrt(torch.clamp_min(r2[perm_r], 1e-30))
         offs_r = seg.group_offsets(g_sr, num_groups)
         Mcum_r = seg.segment_cumsum(torch.where(g_sr > 0, mass[perm_r], 0.0),
-                                    g_sr, offs_r)
+                                    g_sr, offs_r, dtype=torch.float64)
     for ai, a in enumerate(apertures):
         sel = ing & (r2 < a * a)
         w = torch.where(sel, mass, 0.0)
@@ -354,8 +380,9 @@ def _apertures(pos, vel, mass, pfof, num_groups: int, *, refpos, refvel,
             _ssum(torch.where(sel, dv2 * mass, 0.0), pfof, ng1) /
             torch.clamp_min(m_ap, 1e-30) / 3.0, 0.0))
         # reference aperture_rhalfmass, substructureproperties.cxx:4639
-        kh = _first_crossing((Mcum_r >= (0.5 * m_ap)[g_sr]) & (g_sr > 0) &
-                             (r_sr < a), g_sr, ng1)
+        kh = _first_crossing(_above_half(Mcum_r, g_sr, (g_sr > 0) &
+                                         (r_sr < a), ng1, strict=False),
+                             g_sr, ng1)
         out[f"Aperture_rhalfmass_{ai}"] = torch.where(
             kh < n, r_sr[torch.clamp(kh, 0, n - 1)], 0.0)
 
@@ -486,9 +513,11 @@ def _pertype(pos, vel, mass, ptype, pfof, num_groups: int, *, refpos,
         L = _ssum(Lp * w[:, None], pfof, ng1)
         out[f"L_{tname}"] = L
         # half-mass radius of the type (radius-sorted masked cumsum)
-        Mcum_t = seg.segment_cumsum(torch.where(sel[perm], m_s, 0.0), g_s,
-                                    offsets)
-        khalf = _first_crossing((Mcum_t > 0.5 * msum[g_s]) & in_s, g_s, ng1)
+        Mcum_t64 = seg.segment_cumsum(torch.where(sel[perm], m_s, 0.0), g_s,
+                                      offsets, dtype=torch.float64)
+        Mcum_t = Mcum_t64.to(m_s.dtype)
+        khalf = _first_crossing(_above_half(Mcum_t64, g_s, in_s, ng1), g_s,
+                                ng1)
         rhalf = torch.where(khalf < n, r_s[torch.clamp_max(khalf, n - 1)],
                             0.0)
         out[f"R_HalfMass_{tname}"] = rhalf

@@ -1267,8 +1267,9 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     pos, vel, mass = as_f32(pos), as_f32(vel), as_f32(mass)
-    pfof = (pfof if isinstance(pfof, torch.Tensor)
-            else torch.from_numpy(np.asarray(pfof))).to(dev).long()
+    # the splice below writes into pfof: always a copy, never the caller's
+    # tensor (which .to() returns as it is when it already fits)
+    pfof = torch.as_tensor(pfof).to(dev, torch.int64, copy=True)
     laps = _Laps(dev, timings if timings is not None else {})
     n = pos.shape[0]
     ng_total = int(ngroups)

@@ -124,19 +124,27 @@ def distributed_properties(opt, pos: torch.Tensor, vel: torch.Tensor,
     extra = {k: plan.pack(v) for k, v in
              dict(W=W, ptype=ptype, **hydro).items() if v is not None}
     gids = plan.gids
+    # groups the unbind left without members are dealt to no shard; the
+    # first shard with groups computes one more, memberless, group for
+    # their rows, as one device computes them
+    empty = np.nonzero(plan.gid_local[1:] == 0)[0] + 1
     res: Dict[str, np.ndarray] = {}
     for s in range(mesh.size):
         if plan.ng_loc[s] == 0:
             continue
         kw = {k: v[s] for k, v in extra.items()}
+        extra_row = int(len(empty) > 0 and not res)
         pr = fetch_small(property_bundle(
-            opt, pos_b[s], vel_b[s], mass_b[s], gid_b[s], plan.ng_loc[s],
-            boxsize=boxsize, pertype=pertype, **kw))
+            opt, pos_b[s], vel_b[s], mass_b[s], gid_b[s],
+            plan.ng_loc[s] + extra_row, boxsize=boxsize, pertype=pertype,
+            **kw))
         for k, v in pr.items():
             if k not in res:
                 # row 0 (no members) as the first shard with groups
                 # computes it
                 res[k] = np.zeros((num_groups + 1,) + v.shape[1:], v.dtype)
                 res[k][0] = v[0]
+                if extra_row:
+                    res[k][empty] = v[plan.ng_loc[s] + 1]
             res[k][gids[s][1:]] = v[1:plan.ng_loc[s] + 1]
     return res
