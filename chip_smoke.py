@@ -1877,9 +1877,6 @@ EXAMPLE_N = 128 ** 3        # phase 11's uniform background particles
 EXAMPLE_BIG = dict(nhosts=64, nbg=EXAMPLE_N, boxsize=EXAMPLE_BOX,
                    spacing=20.0, nsmall=256, seed=40)
 EXAMPLE_BIG_LOWRES = 65536
-# the CPU tests' input (tests/test_torch_examples_dm.py::SNAPSHOT)
-EXAMPLE_SMALL = dict(nhosts=1, nbg=8192, boxsize=19.0)
-EXAMPLE_SMALL_LOWRES = 256
 # each runnable config under examples/, its input and the route a user
 # drives it by (the swift 3D config through the library API, as
 # tests/test_examples.py runs it)
@@ -1896,13 +1893,15 @@ EXAMPLE_REFUSED = "sample_zoom_run.cfg"
 
 def example_particles(np, kind: str, big: bool):
     """(pos, vel, mass, ptype, box) of phase 11's input of ``kind``."""
-    from velociraptor_stf_tpu_torch.io.synthetic import example_snapshot
+    from velociraptor_stf_tpu_torch.io.synthetic import (EXAMPLE_BOXSIZE,
+                                                         example_snapshot)
 
-    kw = dict(EXAMPLE_BIG if big else EXAMPLE_SMALL)
-    if kind == "zoom":
-        kw["nlowres"] = EXAMPLE_BIG_LOWRES if big else EXAMPLE_SMALL_LOWRES
+    # small: example_snapshot's defaults, the CPU tests' input
+    kw = dict(EXAMPLE_BIG) if big else {}
+    if kind == "zoom" and big:
+        kw["nlowres"] = EXAMPLE_BIG_LOWRES
     pos, vel, mass, ptype = example_snapshot(kind, **kw)
-    return pos, vel, mass, ptype, kw["boxsize"]
+    return pos, vel, mass, ptype, kw.get("boxsize", EXAMPLE_BOXSIZE)
 
 
 def write_example(np, path: Path, parts) -> str:

@@ -12,6 +12,7 @@ tests/test_torch_examples_hydro.py too.
 """
 
 import contextlib
+import math
 import os
 from pathlib import Path
 
@@ -24,7 +25,8 @@ from velociraptor_stf_tpu.utils import config as C
 
 from velociraptor_stf_tpu_torch import cli as tcli
 from velociraptor_stf_tpu_torch import convert
-from velociraptor_stf_tpu_torch.io.synthetic import example_snapshot
+from velociraptor_stf_tpu_torch.io.synthetic import (EXAMPLE_BOXSIZE as BOX,
+                                                     example_snapshot)
 from velociraptor_stf_tpu_torch.models import pipeline as TP
 
 from test_torch_subcatalog import assert_props_inside, half_mass_ties
@@ -34,11 +36,6 @@ from torch_threads import one_torch_thread  # noqa: F401
 h5py = pytest.importorskip("h5py")
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
-# one planted host with a cold subhalo, 24 small halos and 8192
-# uniform particles: every config below finds the subhalo as a
-# substructure (asserted), the smallest input that does
-BOX = 19.0
-SNAPSHOT = dict(nhosts=1, nbg=8192, boxsize=BOX)
 
 
 def write_snapshot(path, pos, vel, mass, ptype):
@@ -99,14 +96,85 @@ def assert_example_matches(d, want, got, opt, files):
     ties = half_mass_ties(opt, want.props, pos, mass, got.pfof, W=W,
                           vel=vel, ptype=ptype if len(set(ptype)) > 1
                           else None, boxsize=box, got=got.props)
-    assert_props_inside(got.props, want.props, got.ngroups, ties=ties)
+    overflow = None
+    if opt.iInclusiveHalo in (1, 2):
+        sres = TP.search_and_unbind(opt, pos, vel, mass, boxsize=box,
+                                    device="cpu")
+        overflow = inclusive_so_overflow(opt, pos, mass,
+                                         sres.pfof_fof.numpy(),
+                                         sres.ngroups_fof, box, got.ngroups)
+        # the inclusive pass writes field halos only
+        for cells in overflow.values():
+            rows = np.nonzero(cells.reshape(len(cells), -1).any(1))[0]
+            assert (np.asarray(got.hostid)[rows] == -1).all()
+    assert_props_inside(got.props, want.props, got.ngroups, ties=ties,
+                        overflow=overflow)
     return ptype
+
+
+def inclusive_so_overflow(opt, pos, mass, pfof_fof, ng_fof, boxsize, ng):
+    """A float64 oracle of Inclusive_halo_masses 1/2's SO pass (both
+    packages' compute_properties on the field search's ids, about each
+    group's centre of mass, minimum count 0.05 num + 1): the cells
+    {key: (ng+1,) or (ng+1, nSO) bool} whose value lies beyond float32's
+    range.  Where a group's first sample past the minimum count is
+    already below a threshold, the crossing extrapolates the log-log
+    enclosed density outward from the previous sample; when the two
+    densities are nearly equal the slope is huge and the exp() of the
+    extrapolation overflows, in the reference as in the port."""
+    lnthr = [math.log(max((opt.virlevel if opt.virlevel > 0 else 200.0) *
+                          opt.rhobg, 1e-30)),
+             math.log(opt.rhocrit * 200.0), math.log(opt.rhobg * 200.0),
+             math.log(opt.rhocrit * 500.0),
+             math.log(max(opt.virBN98 * opt.rhocrit, 1e-30))] + \
+        [math.log(opt.rhocrit * t) for t in opt.SOthresholds_values_crit]
+    names = [("gMvir", "gRvir"), ("gM200c", "gR200c"), ("gM200m", "gR200m"),
+             ("gM500c", "gR500c"), ("gMBN98", "gRBN98")]
+    nso = len(opt.SOthresholds_values_crit)
+    out = {k: np.zeros(ng + 1, bool) for pair in names for k in pair}
+    out.update(SO_mass=np.zeros((ng + 1, nso), bool),
+               SO_radius=np.zeros((ng + 1, nso), bool))
+    big = math.log(float(np.finfo(np.float32).max))
+    for g in range(1, min(ng_fof, ng) + 1):
+        mem = np.nonzero(pfof_fof == g)[0]
+        x = pos[mem].astype(np.float64)
+        d = x - x[0]
+        x = x[0] + d - boxsize * np.round(d / boxsize)
+        m = mass[mem].astype(np.float64)
+        cm = (x * m[:, None]).sum(0) / m.sum()
+        r = np.sqrt(np.maximum(((x - cm) ** 2).sum(1), 1e-30))
+        srt = np.argsort(r, kind="stable")
+        r, M = r[srt], np.cumsum(m[srt])
+        lnrho = np.log(M) - 3.0 * np.log(r) + math.log(3.0 / (4.0 * math.pi))
+        minnum = max(int(0.05 * len(mem) + 1), int(opt.MinSize * 0.05 + 1))
+        for i, thr in enumerate(lnthr):
+            k = np.nonzero((lnrho < thr) & (np.arange(len(r)) >= minnum))[0]
+            if not len(k):
+                continue
+            k = k[0]
+            p = max(k - 1, 0)
+            drho = lnrho[k] - lnrho[p]
+            if abs(drho) <= 1e-12:
+                continue
+            delta = thr - lnrho[k]
+            logs = (np.log(M[k]) + np.log(M[k] / M[p]) / drho * delta,
+                    np.log(r[k]) + np.log(r[k] / r[p]) / drho * delta)
+            for key, v in zip(names[i] if i < 5 else ("SO_mass", "SO_radius"),
+                              logs):
+                if v > big:
+                    if i < 5:
+                        out[key][g] = True
+                    else:
+                        out[key][g, i - 5] = True
+    return out
 
 
 @pytest.fixture(scope="module")
 def snapshot(tmp_path_factory):
     d = tmp_path_factory.mktemp("examples_dm")
-    pos, vel, mass, ptype = example_snapshot("dm", **SNAPSHOT)
+    # example_snapshot's defaults: every config below finds its planted
+    # subhalo as a substructure (asserted)
+    pos, vel, mass, ptype = example_snapshot("dm")
     return d, write_snapshot(d / "snap.gdt", pos, vel, mass, ptype)
 
 

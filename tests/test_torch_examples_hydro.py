@@ -14,8 +14,8 @@ import pytest
 
 from velociraptor_stf_tpu_torch.io.synthetic import example_snapshot
 
-from test_torch_examples_dm import (SNAPSHOT, assert_example_matches,
-                                    run_both, write_snapshot)
+from test_torch_examples_dm import (assert_example_matches, run_both,
+                                    write_snapshot)
 from torch_threads import one_torch_thread  # noqa: F401
 
 HYDRO_FILES = (".catalog_groups", ".hierarchy", ".catalog_parttypes")
@@ -26,7 +26,7 @@ def snapshot(tmp_path_factory):
     # the planted input with gas copies of a sixth of the particles: the
     # subhalo, found as a substructure, takes gas in the association
     d = tmp_path_factory.mktemp("examples_hydro")
-    pos, vel, mass, ptype = example_snapshot("hydro", **SNAPSHOT)
+    pos, vel, mass, ptype = example_snapshot("hydro")
     return d, write_snapshot(d / "snap.gdt", pos, vel, mass, ptype)
 
 

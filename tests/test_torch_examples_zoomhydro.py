@@ -16,9 +16,8 @@ from velociraptor_stf_tpu_torch import api as tapi
 from velociraptor_stf_tpu_torch.io.synthetic import example_snapshot
 from velociraptor_stf_tpu_torch.utils import config as TC
 
-from test_torch_examples_dm import (BOX, EXAMPLES, SNAPSHOT,
-                                    assert_example_matches, one_device,
-                                    run_both, write_snapshot)
+from test_torch_examples_dm import (BOX, EXAMPLES, assert_example_matches,
+                                    one_device, run_both, write_snapshot)
 from test_torch_examples_hydro import HYDRO_FILES
 from test_torch_subcatalog import assert_props_inside, half_mass_ties
 from test_torch_subcli import _datasets
@@ -28,8 +27,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 def test_zoomhydro_config_matches_reference(tmp_path):
     # the hydro input with 256 uniform low-resolution particles and eight
     # inside the host: some stay in a group as interlopers
-    pos, vel, mass, ptype = example_snapshot("zoom", nlowres=256,
-                                             **SNAPSHOT)
+    pos, vel, mass, ptype = example_snapshot("zoom")
     snap = write_snapshot(tmp_path / "snap.gdt", pos, vel, mass, ptype)
     name = "sample_zoomhydrocosmological_run.cfg"
     want, got, opt = run_both(name, snap, tmp_path)
@@ -42,7 +40,7 @@ def test_zoomhydro_config_matches_reference(tmp_path):
 
 
 def test_swifthydro_3dfof_config_through_api(tmp_path):
-    pos, vel, mass, ptype = example_snapshot("hydro", **SNAPSHOT)
+    pos, vel, mass, ptype = example_snapshot("hydro")
     n = len(pos)
     pids = np.arange(1, n + 1)
     cfg = str(EXAMPLES / "sample_swifthydro_3dfof_subhalo.cfg")

@@ -19,7 +19,7 @@ from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.io.synthetic import G_KMS, planted_subhalos
 from velociraptor_stf_tpu_torch.models import pipeline as TP
 
-from test_torch_properties import assert_props_match, newton_settled
+from test_torch_properties import assert_props_match
 from torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 16.0
@@ -109,11 +109,13 @@ def half_mass_ties(opt, want, pos, mass, pfof, *, W=None, vel=None,
 
     Radial profiles normalised by R200c (``Radial_profile_norm=0``) are
     built on an SO radius, which the two packages' cumulative sums move
-    (assert_props_inside's SO rule): with ``got``, at the groups whose
-    normalising radii differ, each catalog's Npart_profile and
-    Mass_profile must be the oracle's binning of the members by its own
-    radius (the entries hold (ng+1, 2, nbins): the port's, the
-    reference's)."""
+    (assert_props_inside's SO rule): with ``got``, at the groups where
+    the oracle's binnings of the members by the two catalogs' radii
+    differ (a member lies between a bin edge scaled by the one and by
+    the other), each catalog's Npart_profile and Mass_profile must be
+    the oracle's binning by its own radius (the entries hold (ng+1, 2,
+    nbins): the port's, the reference's).  Every other group's profiles
+    are compared directly."""
     ng = len(np.asarray(want["gmass"])) - 1
     pfof = np.asarray(pfof, np.int64)
     mass = np.asarray(mass, np.float64)
@@ -165,15 +167,15 @@ def half_mass_ties(opt, want, pos, mass, pfof, *, W=None, vel=None,
         r0 = _group_radii(pos, centre, mem, boxsize)
         r = _group_radii(pos, centre, mem)
         if norm is not None and norm[g, 0] != norm[g, 1]:
-            for side in range(2):
-                x = np.log10(np.maximum(r / max(norm[g, side], 1e-30),
-                                        1e-30))
-                ib = np.searchsorted(edges, x)
-                out["Npart_profile"][1][g, side] = np.bincount(ib,
-                                                               minlength=nb)
-                out["Mass_profile"][1][g, side] = np.bincount(
-                    ib, weights=mass[mem], minlength=nb)
-            out["Npart_profile"][0][g] = out["Mass_profile"][0][g] = True
+            ib = [np.searchsorted(edges, np.log10(np.maximum(
+                r / max(norm[g, side], 1e-30), 1e-30))) for side in range(2)]
+            if (ib[0] != ib[1]).any():
+                for side in range(2):
+                    out["Npart_profile"][1][g, side] = np.bincount(
+                        ib[side], minlength=nb)
+                    out["Mass_profile"][1][g, side] = np.bincount(
+                        ib[side], weights=mass[mem], minlength=nb)
+                out["Npart_profile"][0][g] = out["Mass_profile"][0][g] = True
         every = np.ones(len(mem), bool)
         cases = [("gRhalfmass", r0, every, True)]
         cases += [(f"Aperture_rhalfmass_{i}", r, r < a, False)
@@ -223,80 +225,26 @@ def accept_ties(got, want, ties, rtol=2e-3):
         got[k][tied] = want[k][tied]
 
 
-def _cnfw(vv, R200c, M200c, gsize, rmax):
-    """models/properties.py's cNFW in float64: the reference's Newton
-    iteration on VmaxVvir2 in (1.05, 36], else R200c / Rmax."""
-    c = np.full(vv.shape, 10.0)
-    for _ in range(30):
-        conec = c / (1.0 + c)
-        y = vv - 0.216 * c / (np.log1p(c) - c / (1.0 + c))
-        dy = 0.216 * conec * conec / np.maximum(c, 1e-6)
-        c = np.clip(c + y / np.maximum(dy, 1e-12), 1.0, 1000.0)
-    rmax = np.maximum(rmax, 1e-30)
-    fallback = np.where(M200c > 0, R200c / rmax, gsize / rmax)
-    return np.where(R200c <= 0, -1.0,
-                    np.where((vv > 1.05) & (vv <= 36.0), c, fallback))
-
-
-def _accept_so_derived(got, want, ng, rtol=2e-3):
-    """VmaxVvir2 = gmaxvel^2 R200c / (G M200c) and cNFW are built on the
-    property stage's SO values (``*_excl`` once the inclusive masses
-    replace them), which the SO rule lets differ.  Where the two
-    catalogs' VmaxVvir2 differ, each must follow from its own values:
-    the same G, and cNFW the float64 iteration on its own VmaxVvir2
-    wherever that settles; ``got`` then takes ``want``'s values there."""
-    if "VmaxVvir2" not in want:
-        return
-    sfx = "_excl" if "gM200c_excl" in want else ""
-    cat = {}
-    for name, d in (("port", got), ("reference", want)):
-        M, R, vmax, vv, gsize, rmax = (
-            d[k][:ng + 1].astype(np.float64) for k in (
-                "gM200c" + sfx, "gR200c" + sfx, "gmaxvel", "VmaxVvir2",
-                "gsize", "gRmaxvel"))
-        cat[name] = (vv * M / np.maximum(vmax ** 2 * R, 1e-300),
-                     _cnfw(vv, R, M, gsize, rmax), vv)
-    rows = ~np.isclose(cat["port"][2], cat["reference"][2], rtol=rtol)
-    rows[0] = False
-    rows &= (want["gM200c" + sfx][:ng + 1] > 0)
-    if not rows.any():
-        return
-    inv_g = cat["reference"][0][rows]
-    for name, d in (("port", got), ("reference", want)):
-        np.testing.assert_allclose(cat[name][0][rows], inv_g, rtol=rtol,
-                                   err_msg=f"VmaxVvir2 {name}")
-        if "cNFW" in want:
-            settled = newton_settled(cat[name][2])[rows]
-            np.testing.assert_allclose(
-                d["cNFW"][:ng + 1][rows][settled],
-                cat[name][1][rows][settled], rtol=rtol,
-                err_msg=f"cNFW {name}")
-    for k in ("VmaxVvir2", "cNFW"):
-        if k in want:
-            got[k][:ng + 1][rows] = want[k][:ng + 1][rows]
-
-
-def assert_props_inside(got, want, ng, ties=None):
+def assert_props_inside(got, want, ng, ties=None, overflow=None):
     """assert_props_match, with the spherical-overdensity values taken
     apart.  Where a sphere reaches beyond the group's particles (R >
     gsize) both packages extrapolate the enclosed-density profile, which
     amplifies the rounding of the cumulative masses without bound: such a
-    value must extrapolate too and be finite and positive (infinite where
-    the reference's overflows float32 too).  Elsewhere the
+    value must extrapolate too and be finite and positive.  Elsewhere the
     SO values are held to rtol 1e-2: a host with its substructure carved
     out has a shallow, ragged enclosed-density profile at the crossing,
     where the reference's float32 prefix sum of the masses and the port's
     float64 one (ROADMAP queue 3) move the interpolated crossing by up to
-    0.5%; VmaxVvir2 and cNFW, built on them, must follow from each
-    catalog's own values where they differ (``_accept_so_derived``).
-    ``ties`` (``half_mass_ties``): at a tie of the cumulative mass the
-    half-mass radii and what is built on them take the accepted values;
-    every other row is held as before."""
+    0.5%.  ``ties`` (``half_mass_ties``): at a tie of the cumulative mass
+    the half-mass radii and what is built on them take the accepted
+    values; every other row is held as before.  ``overflow``
+    ({key: cells}, from a float64 oracle of the extrapolation): the cells
+    whose extrapolated value lies beyond float32's range, where both
+    catalogs must hold inf instead."""
     got = {k: np.array(v) for k, v in got.items()}
     want = {k: np.array(v) for k, v in want.items()}
     if ties:
         accept_ties(got, want, ties)
-    _accept_so_derived(got, want, ng)
     size = want["gsize"][:ng + 1]
     for mk, rk in SO_PAIRS:
         for sfx in ("", "_excl"):
@@ -309,10 +257,10 @@ def assert_props_inside(got, want, ng, ties=None):
             assert (got[rk + sfx][:ng + 1][out] > lim[out]).all()
             for k in (mk + sfx, rk + sfx):
                 w, g = want[k][:ng + 1], got[k][:ng + 1]
-                # where the reference's extrapolation overflows, the
-                # port's must too
-                inf = out & ~np.isfinite(w)
-                assert (g[inf] == w[inf]).all(), k
+                inf = np.zeros(r.shape, bool) if overflow is None else \
+                    overflow.get(k, np.zeros(r.shape, bool))[:ng + 1]
+                assert (out[inf] & np.isposinf(w[inf]) &
+                        np.isposinf(g[inf])).all(), k
                 fin = out & ~inf
                 assert np.isfinite(g[fin]).all() and (g[fin] > 0).all(), k
                 np.testing.assert_allclose(g[~out], w[~out], rtol=1e-2,
@@ -339,7 +287,7 @@ def assert_same_catalog(got, want, w_rtol=1e-4, opt=None, pos=None,
                                    atol=w_rtol * np.abs(w).max())
     ties = None if opt is None else half_mass_ties(
         opt, want.props, pos, mass, got.pfof, W=want.W, ptype=ptype,
-        boxsize=BOX, got=got.props)
+        boxsize=BOX)
     assert_props_inside(got.props, want.props, got.ngroups, ties=ties)
 
 

@@ -123,7 +123,7 @@ def test_cli_example_config_matches_reference(cli_runs):
     opt.fname, opt.inputtype = str(d / "snap.gdt"), C.IOGADGET
     pos, _, _, _, mass, box, _ = tcli.read_snapshot(opt)
     ties = half_mass_ties(opt, want.props, pos, mass, got.pfof, W=want.W,
-                          boxsize=box, got=got.props)
+                          boxsize=box)
     assert_props_inside(got.props, want.props, got.ngroups, ties=ties)
     assert "substructure" in got.timings
 

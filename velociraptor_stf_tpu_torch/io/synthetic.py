@@ -236,11 +236,17 @@ def planted_subhalos(nhosts: int = 3, seed: int = 10, nhost: int = 3000,
     return pos, vel, mass, host
 
 
-def example_snapshot(kind: str = "dm", nhosts: int = 3, nbg: int = 16384,
-                     boxsize: float = 24.0, spacing: float = 6.0,
+# example_snapshot's default box: one planted host with a cold subhalo,
+# 24 small halos and 8192 uniform particles, the smallest input on which
+# every config under examples/ finds the subhalo as a substructure
+EXAMPLE_BOXSIZE = 19.0
+
+
+def example_snapshot(kind: str = "dm", nhosts: int = 1, nbg: int = 8192,
+                     boxsize: float = EXAMPLE_BOXSIZE, spacing: float = 6.0,
                      seed: int = 10, nhost: int = 3000, nsub: int = 400,
                      sub_sigma: float = 3.0, nsmall: int = 24,
-                     nlowres: int = 2048, mass: float = 2.0 ** -5):
+                     nlowres: int = 256, mass: float = 2.0 ** -5):
     """Particles for the configs under ``examples/``: ``nhosts`` planted
     hosts with a subhalo each (``host_with_subhalo`` with ``sub_sigma``,
     seeds seed, seed+1, ...) on a cubic lattice ``spacing`` apart from

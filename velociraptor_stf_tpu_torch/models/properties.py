@@ -185,7 +185,7 @@ def _props_geom(pos, vel, mass, pfof, num_groups: int, *,
     m_s = m[perm]
     offsets = seg.group_offsets(g_s, num_groups)
     rank = seg.segment_rank(g_s, offsets)
-    Mcum64 = seg.segment_cumsum(m_s, g_s, offsets, dtype=torch.float64)
+    Mcum64 = seg.segment_cumsum(m_s.double(), g_s, offsets)
     Mcum = Mcum64.to(m_s.dtype)
     in_s = g_s > 0
     gsize = seg.segment_max(torch.where(in_s, r_s, 0.0), g_s, ng1)
@@ -366,8 +366,8 @@ def _apertures(pos, vel, mass, pfof, num_groups: int, *, refpos, refvel,
         g_sr = pfof[perm_r]
         r_sr = torch.sqrt(torch.clamp_min(r2[perm_r], 1e-30))
         offs_r = seg.group_offsets(g_sr, num_groups)
-        Mcum_r = seg.segment_cumsum(torch.where(g_sr > 0, mass[perm_r], 0.0),
-                                    g_sr, offs_r, dtype=torch.float64)
+        Mcum_r = seg.segment_cumsum(
+            torch.where(g_sr > 0, mass[perm_r], 0.0).double(), g_sr, offs_r)
     for ai, a in enumerate(apertures):
         sel = ing & (r2 < a * a)
         w = torch.where(sel, mass, 0.0)
@@ -513,8 +513,8 @@ def _pertype(pos, vel, mass, ptype, pfof, num_groups: int, *, refpos,
         L = _ssum(Lp * w[:, None], pfof, ng1)
         out[f"L_{tname}"] = L
         # half-mass radius of the type (radius-sorted masked cumsum)
-        Mcum_t64 = seg.segment_cumsum(torch.where(sel[perm], m_s, 0.0), g_s,
-                                      offsets, dtype=torch.float64)
+        Mcum_t64 = seg.segment_cumsum(
+            torch.where(sel[perm], m_s, 0.0).double(), g_s, offsets)
         Mcum_t = Mcum_t64.to(m_s.dtype)
         khalf = _first_crossing(_above_half(Mcum_t64, g_s, in_s, ng1), g_s,
                                 ng1)

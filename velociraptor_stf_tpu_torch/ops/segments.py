@@ -139,22 +139,19 @@ def segment_outer(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
 
 
 def segment_cumsum(values: torch.Tensor, seg_sorted: torch.Tensor,
-                   offsets: torch.Tensor,
-                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   offsets: torch.Tensor) -> torch.Tensor:
     """Inclusive cumulative sum within contiguous segments of the
-    non-decreasing ``seg_sorted`` (``offsets`` from ``group_offsets``),
-    in ``dtype`` (default: the values').
+    non-decreasing ``seg_sorted`` (``offsets`` from ``group_offsets``).
 
     The running total is kept in float64 and each segment's start is
-    subtracted before rounding, so every segment's sums are those of its
-    own elements to float64 accuracy, whatever the length of the array
-    before it (exactly, for float32 values whose sums keep within
-    float64's 53 bits)."""
+    subtracted before rounding back to the values' dtype, so every
+    segment's sums are those of its own elements to float64 accuracy,
+    whatever the length of the array before it."""
     total = torch.cumsum(values.double(), 0)
     starts = offsets[seg_sorted]
     base = torch.where(starts > 0, total[torch.clamp_min(starts - 1, 0)],
                        0.0)
-    return (total - base).to(values.dtype if dtype is None else dtype)
+    return (total - base).to(values.dtype)
 
 
 def segment_max(values: torch.Tensor, seg: torch.Tensor,
