@@ -1,0 +1,122 @@
+"""Faults planted in the program, to show that the comparison catches
+them: a stage that returns its input unchanged (the recursion, every
+unbind, the baryon association), half of the input left out, and an
+answer altered where it is produced.  (A cell on one chip has no
+exchange between chips to leave out.)
+
+A patch fault replaces a function of the program through ``setattr``
+(pytest's ``monkeypatch.setattr``, or the plain one for a process that
+ends after its readings); a catalog fault wraps the catalog call.  The
+benchmark's own runs never plant one: the CPU tests
+(``tests/test_benchmark_control.py``) and ``readings.py --fault`` do.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def unchanged_substructure(set_attr) -> None:
+    """The recursion returns the field halos as it got them, with a flat
+    hierarchy."""
+    from velociraptor_stf_tpu_torch.models import substructure
+
+    def flat(opt, pos, vel, mass, pfof, ng, **kw):
+        return (pfof, ng, np.full(ng + 1, -1, np.int64),
+                np.zeros(ng + 1, np.int64), np.zeros(ng + 1, np.int32))
+
+    set_attr(substructure, "search_sub_sub", flat)
+
+
+def unbind_skipped(set_attr) -> None:
+    """Every unbind (the recursion's level-wide one and the baryons'
+    combined one) keeps every member: it runs with a kinetic-to-potential
+    ratio of 0, so no particle is unbound."""
+    from velociraptor_stf_tpu_torch.models import unbind
+
+    real = unbind.check_unbound_groups
+
+    def keep_all(pos, vel, mass, pfof, num_groups, uinfo, *a, **kw):
+        return real(pos, vel, mass, pfof, num_groups,
+                    dataclasses.replace(uinfo, Eratio=0.0), *a, **kw)
+
+    set_attr(unbind, "check_unbound_groups", keep_all)
+
+
+def unchanged_baryons(set_attr) -> None:
+    """The baryon association leaves every baryon ungrouped."""
+    from velociraptor_stf_tpu_torch.models import baryons
+
+    def none(opt, pos_dm, vel_dm, pfof_dm, pos_b, vel_b, **kw):
+        return torch.zeros(pos_b.shape[0], dtype=torch.int32,
+                           device=pos_b.device)
+
+    set_attr(baryons, "search_baryons", none)
+
+
+PATCHES = {f.__name__: f for f in (unchanged_substructure, unbind_skipped,
+                                   unchanged_baryons)}
+
+
+def half_left_out(catalog):
+    """Every other particle left out of the search; the catalog's ids
+    spread back over the whole snapshot."""
+
+    def run(opt, hs, device):
+        half = copy.copy(hs)
+        a = dict(hs.arrays)
+        n = a["pos"].shape[0]
+        keep = np.arange(0, n, 2)
+        for k in ("pos", "vel", "mass", "ptype"):
+            if a[k] is not None:
+                a[k] = a[k][keep]
+        if a["extras"]:
+            a["extras"] = {k: v[keep] for k, v in a["extras"].items()}
+        half.arrays = a
+        res = catalog(opt, half, device)
+        pfof = np.zeros(n, res.pfof.dtype)
+        pfof[keep] = res.pfof
+        res.pfof = pfof
+        if res.pfof3d is not None:
+            dm = np.ones(n, bool) if a["ptype"] is None else \
+                hs.arrays["ptype"] == 1
+            p3 = np.zeros(n, res.pfof3d.dtype)
+            p3[keep[dm[keep]]] = res.pfof3d
+            res.pfof3d = p3[dm]
+        return res
+
+    return run
+
+
+def id_altered(catalog):
+    """One member of the largest structure handed to the second."""
+
+    def run(opt, hs, device):
+        res = catalog(opt, hs, device)
+        g = np.nonzero(res.pfof == 1)[0]
+        res.pfof = res.pfof.copy()
+        res.pfof[g[0]] = 2
+        return res
+
+    return run
+
+
+def parent_altered(catalog):
+    """The first substructure's parent set to none."""
+
+    def run(opt, hs, device):
+        res = catalog(opt, hs, device)
+        res.parent = res.parent.copy()
+        sub = np.nonzero(res.parent > 0)[0]
+        res.parent[sub[0]] = 0
+        return res
+
+    return run
+
+
+WRAPPERS = {f.__name__: f for f in (half_left_out, id_altered,
+                                    parent_altered)}

@@ -1,10 +1,12 @@
 """Readings that set a cell's limits: for each seed, the numbers of one
-program catalog (sound runs: the lower readings) and of the control
-(``reference/control.py``: the upper readings), at the cell's own size,
-in one process.  The benchmark's runs never run this.
+program catalog (sound runs: the lower readings), of the control
+(``reference/control.py``: the upper readings) and of the program with a
+fault of ``faults.py`` planted, at the cell's own size, in one process.
+The benchmark's runs never run this.
 
     python benchmark/readings.py --workload <cell> --seeds 11 12 13 \
-        [--control-seeds 11 12 13] > readings.jsonl
+        [--control-seeds 11 12 13] [--fault unbind_skipped \
+        --fault-seeds 11 12 13] > readings.jsonl
 """
 
 import argparse
@@ -21,36 +23,58 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
+    ap.add_argument("--fault", action="append", default=[])
+    ap.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     import torch
 
+    from benchmark import faults
     from benchmark.harness import registry
     from benchmark.harness.options import build_options
     from benchmark.harness.runner import _catalog, to_host
     from benchmark.reference import checks, control
 
+    if sum(f in faults.PATCHES for f in args.fault) > 1:
+        ap.error("one patched fault a process")
     cell = registry.find_cell(args.workload)
-    for kind, seeds in (("program", args.seeds),
-                        ("control", args.control_seeds)):
+    runs = [("program", args.seeds), ("control", args.control_seeds)]
+    runs += [(f, args.fault_seeds) for f in args.fault]
+    for kind, seeds in runs:
+        catalog = _catalog
+        if kind in faults.PATCHES:
+            # a patch stays for the rest of the process: faults come last
+            faults.PATCHES[kind](setattr)
+        elif kind in faults.WRAPPERS:
+            catalog = faults.WRAPPERS[kind](_catalog)
         for seed in seeds:
             t0 = time.perf_counter()
             snap = cell.generator(cell.config, cell.traffic, seed,
                                   args.device)
             prm = checks.Params(cell.config, snap.boxsize, snap.n, snap.a)
-            if kind == "program":
-                opt = build_options(cell.config, snap, snap.n)
-                cand = _catalog(opt, to_host(snap), args.device)
-            else:
+            if kind == "control":
                 cand = control.build(control.lowered(snap), prm)
+            else:
+                opt = build_options(cell.config, snap, snap.n)
+                cand = catalog(opt, to_host(snap), args.device)
             t1 = time.perf_counter()
             numbers = checks.compare(snap, prm, cand)
             t2 = time.perf_counter()
-            print(json.dumps({"workload": args.workload, "kind": kind,
-                              "seed": seed, "numbers": numbers,
-                              "catalog_s": t1 - t0, "compare_s": t2 - t1}),
-                  flush=True)
+            row = {"workload": args.workload, "kind": kind, "seed": seed,
+                   "numbers": numbers, "catalog_s": t1 - t0,
+                   "compare_s": t2 - t1}
+            if snap.sub_sizes is not None and len(snap.sub_sizes):
+                # each planted subhalo's size and the most of it that one
+                # substructure holds
+                held = checks.subhalo_held(
+                    torch.as_tensor(np.asarray(cand.pfof, np.int64),
+                                    device=snap.sub_of.device),
+                    cand.parent, snap.sub_of, len(snap.sub_sizes))
+                row["subhalos"] = [[int(a), int(b)] for a, b in
+                                   zip(snap.sub_sizes, held)]
+            print(json.dumps(row), flush=True)
             del snap, cand
             if args.device == "cuda":
                 torch.cuda.empty_cache()

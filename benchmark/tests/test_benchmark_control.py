@@ -1,18 +1,15 @@
 """The comparison finds the control wrong, and drives a whole run to
-``correct`` false for each fault a cell can have: a stage that returns
-its input unchanged, half of the input left out, and an answer altered
-where it is produced.  (A cell on one chip has no exchange between
-chips to leave out.)  At a small size on the CPU; the readings at the
-cells' own sizes are in PERF.md."""
+``correct`` false for each fault a cell can have (``faults.py``): a
+stage that returns its input unchanged, half of the input left out, and
+an answer altered where it is produced.  At a small size on the CPU;
+the readings at the cells' own sizes are in PERF.md."""
 
-import copy
 import json
 import time
 
-import numpy as np
 import pytest
-import torch
 
+from benchmark import faults
 from benchmark.harness import registry, runner
 from benchmark.reference import checks, control
 from benchmark.tests.tiny import tiny_root
@@ -20,12 +17,10 @@ from benchmark.tests.tiny import tiny_root
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny_root(tmp_path_factory.mktemp("tiny"), n_side=48,
-                     mmax_scale=0.1)
+    return tiny_root(tmp_path_factory.mktemp("tiny"))
 
 
-@pytest.mark.parametrize("cell", ["dmcosmo.z0", "dmcosmo.z6",
-                                  "swifthydro6d.z6"])
+@pytest.mark.parametrize("cell", ["dmcosmo.z6", "swifthydro6d.z6"])
 def test_the_control_is_not_correct(root, cell):
     c = registry.find_cell(cell, root)
     snap = c.generator(c.config, c.traffic, 2 ** 31 + 7, "cpu")
@@ -35,73 +30,23 @@ def test_the_control_is_not_correct(root, cell):
     failed = [k for k, lim in c.limits.items() if numbers[k] > lim]
     assert "fof3d_wrong" in failed and "props_gap" in failed
     assert "so_off_share" in failed and "centre_off_share" in failed
+    # a flat hierarchy: the recursion found nothing in any host
+    assert "hosts_missed" in failed
+    if prm.unbind_all:
+        # no unbind: the members the combined unbind drops stay
+        assert "unbound_share" in failed
 
 
-def _unchanged_substructure(monkeypatch):
-    from velociraptor_stf_tpu_torch.models import substructure
-
-    def flat(opt, pos, vel, mass, pfof, ng, **kw):
-        return (pfof, ng, np.full(ng + 1, -1, np.int64),
-                np.zeros(ng + 1, np.int64), np.zeros(ng + 1, np.int32))
-
-    monkeypatch.setattr(substructure, "search_sub_sub", flat)
-
-
-def _unchanged_baryons(monkeypatch):
-    from velociraptor_stf_tpu_torch.models import baryons
-
-    def none(opt, pos_dm, vel_dm, pfof_dm, pos_b, vel_b, **kw):
-        return torch.zeros(pos_b.shape[0], dtype=torch.int32,
-                           device=pos_b.device)
-
-    monkeypatch.setattr(baryons, "search_baryons", none)
-
-
-def _half_left_out(opt, hs, device):
-    half = copy.copy(hs)
-    a = dict(hs.arrays)
-    n = a["pos"].shape[0]
-    keep = np.arange(0, n, 2)
-    for k in ("pos", "vel", "mass", "ptype"):
-        if a[k] is not None:
-            a[k] = a[k][keep]
-    if a["extras"]:
-        a["extras"] = {k: v[keep] for k, v in a["extras"].items()}
-    half.arrays = a
-    res = runner._catalog(opt, half, device)
-    pfof = np.zeros(n, res.pfof.dtype)
-    pfof[keep] = res.pfof
-    res.pfof = pfof
-    if res.pfof3d is not None:
-        dm = np.ones(n, bool) if a["ptype"] is None else \
-            hs.arrays["ptype"] == 1
-        p3 = np.zeros(n, res.pfof3d.dtype)
-        p3[keep[dm[keep]]] = res.pfof3d
-        res.pfof3d = p3[dm]
-    return res
-
-
-def _id_altered(opt, hs, device):
-    res = runner._catalog(opt, hs, device)
-    g = np.nonzero(res.pfof == 1)[0]
-    res.pfof = res.pfof.copy()
-    res.pfof[g[0]] = 2
-    return res
-
-
-def _parent_altered(opt, hs, device):
-    res = runner._catalog(opt, hs, device)
-    res.parent = res.parent.copy()
-    sub = np.nonzero(res.parent > 0)[0]
-    res.parent[sub[0]] = 0
-    return res
-
-
+# dmcosmo.z6 cannot tell a skipped unbind (its unbound_share is not held:
+# sound substructures read up to 7.5% unbound under their own potential,
+# the fault 12-23%, less than three times; PERF.md); the hydro cell can.
+# A parent set to none is a valid orphan of the baryons' unbind in the
+# hydro cell, so only dmcosmo.z6 can tell it.
 FAULTS = {
-    "dmcosmo.z0": ["unchanged_substructure", "half_left_out", "id_altered",
+    "dmcosmo.z6": ["unchanged_substructure", "half_left_out", "id_altered",
                    "parent_altered"],
-    "dmcosmo.z6": ["half_left_out", "id_altered"],
-    "swifthydro6d.z6": ["unchanged_baryons", "half_left_out", "id_altered"],
+    "swifthydro6d.z6": ["unchanged_substructure", "unbind_skipped",
+                        "unchanged_baryons", "half_left_out", "id_altered"],
 }
 
 
@@ -110,12 +55,10 @@ FAULTS = {
 def test_a_fault_makes_the_run_not_correct(root, cell, fault, monkeypatch,
                                            capsys):
     catalog = runner._catalog
-    if fault == "unchanged_substructure":
-        _unchanged_substructure(monkeypatch)
-    elif fault == "unchanged_baryons":
-        _unchanged_baryons(monkeypatch)
+    if fault in faults.PATCHES:
+        faults.PATCHES[fault](monkeypatch.setattr)
     else:
-        catalog = globals()["_" + fault]
+        catalog = faults.WRAPPERS[fault](catalog)
     rc = runner.run(cell, 2 ** 31 + 11, 0.5, False, time.perf_counter(),
                     root=root, device="cpu", catalog=catalog)
     assert rc == 0

@@ -19,8 +19,7 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny_root(tmp_path_factory.mktemp("tiny"), n_side=48,
-                     mmax_scale=0.1)
+    return tiny_root(tmp_path_factory.mktemp("tiny"))
 
 
 def last_line(capsys):
@@ -28,8 +27,7 @@ def last_line(capsys):
     return json.loads(out[-1])
 
 
-@pytest.mark.parametrize("cell", ["dmcosmo.z0", "dmcosmo.z6",
-                                  "swifthydro6d.z6"])
+@pytest.mark.parametrize("cell", ["dmcosmo.z6", "swifthydro6d.z6"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_a_run_prints_its_result_line(root, cell, trace, capsys):
     rc = runner.run(cell, 2 ** 31 + 99, 1.0, bool(trace),

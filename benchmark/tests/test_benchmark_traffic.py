@@ -13,7 +13,7 @@ from benchmark.traffic import cosmo_box
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny_root(tmp_path_factory.mktemp("tiny"), n_side=32)
+    return tiny_root(tmp_path_factory.mktemp("tiny"))
 
 
 def load(root, config, traffic):
@@ -24,7 +24,7 @@ def load(root, config, traffic):
     return cfg, tr
 
 
-@pytest.mark.parametrize("config,traffic", [("dmcosmo", "z0_subhalos"),
+@pytest.mark.parametrize("config,traffic", [("dmcosmo", "z6_dark"),
                                             ("swifthydro6d", "z6_hydro")])
 def test_same_sizes_for_every_seed(root, config, traffic):
     cfg, tr = load(root, config, traffic)
@@ -39,7 +39,7 @@ def test_same_sizes_for_every_seed(root, config, traffic):
                            torch.bincount(b.ptype.long()))
 
 
-@pytest.mark.parametrize("config,traffic", [("dmcosmo", "z0_subhalos"),
+@pytest.mark.parametrize("config,traffic", [("dmcosmo", "z6_dark"),
                                             ("swifthydro6d", "z6_hydro")])
 def test_same_snapshot_for_one_seed(root, config, traffic):
     cfg, tr = load(root, config, traffic)
@@ -55,14 +55,16 @@ def test_same_snapshot_for_one_seed(root, config, traffic):
 
 
 def test_cell_sizes_as_the_traffic_states():
-    """The full cells' populations: 4,000 halos up to 116,598 particles
-    with 144 hosts of >= 800 (15.9% of 188^3 in halos); 1,000 halos
-    with 11 hosts of >= 800 (1.4%)."""
-    s = cosmo_box.quantile_sizes(4000, 20, 175000, 1.9)
-    assert s.max() == 116598 and (s >= 800).sum() == 144
-    assert abs(s.sum() / 188 ** 3 - 0.1593) < 1e-3
-    s = cosmo_box.quantile_sizes(1000, 20, 1200, 1.9)
-    assert (s >= 800).sum() == 11 and abs(s.sum() / 188 ** 3 - 0.0141) < 1e-3
+    """The full cells' populations, as both z6 mixes state them: 1,000
+    halos with 11 hosts of >= 800 (1.4% of 188^3 in halos)."""
+    for mix in ("z6_dark", "z6_hydro"):
+        t = json.loads((tiny_root.__globals__["REPO"] / "benchmark/traffic"
+                        / f"{mix}.json").read_text())
+        s = cosmo_box.quantile_sizes(t["n_halo"], t["m_min"], t["m_max"],
+                                     t["slope"])
+        assert len(s) == 1000 and s.max() == 1175
+        assert (s >= t["sub_min_host"]).sum() == 11
+        assert abs(s.sum() / 188 ** 3 - 0.0141) < 1e-3
 
 
 def test_subhalo_sizes_hold_up_to_the_share():
@@ -70,11 +72,11 @@ def test_subhalo_sizes_hold_up_to_the_share():
         s = cosmo_box.subhalo_sizes(n, 0.1, 20, 1.9)
         assert 0.75 * round(0.1 * n) <= s.sum() <= round(0.1 * n)
         assert s.min() >= 20
-    hosts = cosmo_box.quantile_sizes(4000, 20, 175000, 1.9)
+    hosts = cosmo_box.quantile_sizes(1000, 20, 1200, 1.9)
     subs = [cosmo_box.subhalo_sizes(int(n), 0.1, 20, 1.9)
             for n in hosts[hosts >= 800]]
-    assert sum(len(x) for x in subs) == 978
-    assert sum(int((x >= 100).sum()) for x in subs) == 141
+    assert sum(len(x) for x in subs) == 33
+    assert sum(int((x >= 30).sum()) for x in subs) == 19
 
 
 def test_particle_masses_are_the_mean_density():
@@ -86,3 +88,29 @@ def test_particle_masses_are_the_mean_density():
     rho_c = 3 * 100.0 ** 2 / (8 * np.pi * e["Gravity"])
     assert m["dark_matter"] * 188 ** 3 == pytest.approx(
         0.25 * rho_c * 12.5 ** 3)
+
+
+@pytest.mark.parametrize("config,traffic", [("dmcosmo", "z6_dark"),
+                                            ("swifthydro6d", "z6_hydro")])
+def test_every_seed_draws_the_same_halos(root, config, traffic):
+    """With a halo_seed, a planted subhalo's particles lie and move the
+    same way about its centre for every seed; only where it is differs."""
+    cfg, tr = load(root, config, traffic)
+    assert "halo_seed" in tr
+
+    def subhalo(seed):
+        s = cosmo_box.generate(cfg, tr, seed, "cpu")
+        sel = s.sub_of == 0
+        p, v = s.pos[sel].double(), s.vel[sel].double()
+        d = p - p[0]
+        d = d - s.boxsize * torch.round(d / s.boxsize)
+        rel = torch.cat([d - d.mean(0), v - v.mean(0)], 1)
+        return torch.sort(rel, dim=0).values, p.mean(0)
+
+    (a, ca), (b, cb) = subhalo(3), subhalo(2 ** 31 + 77)
+    # float32 rounding at different places in the box: 1e-6 of the box
+    # in position, 1e-3 km/s in velocity
+    tol = torch.tensor([1e-6 * cfg["boxsize"]] * 3 + [1e-3] * 3,
+                       dtype=torch.float64)
+    assert ((a - b).abs() <= tol).all()
+    assert not torch.allclose(ca, cb)

@@ -1,6 +1,7 @@
 """A small copy of the benchmark's files for CPU tests: the same cells,
-configurations and traffic mixes with the volume and the halo numbers
-scaled down (the particle spacing, halo profiles and configs stay)."""
+configurations and traffic mixes with the volume and the number of
+halos cut (the particle spacing, the halos' sizes up to the mixes' own
+largest, their profiles, subhalos and the configs stay)."""
 
 from __future__ import annotations
 
@@ -11,21 +12,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 
-def tiny_root(dest: Path, n_side: int = 40, mmax_scale: float = 0.05) -> Path:
-    """Copy BENCHMARK.json (with dmcosmo.z0 added) and benchmark/ under
-    ``dest`` with every configuration at ``n_side`` particles a side and
-    every traffic mix's halo count scaled with the volume."""
-    m = json.loads((REPO / "BENCHMARK.json").read_text())
-    # dmcosmo.z0 is left out of the manifest for the spread of its runs
-    # on the card (PERF.md); its traffic mix, limits and the comparison's
-    # planted-subhalo number stay tested here
-    m["workloads"].append({"name": "dmcosmo.z0", "config": "dmcosmo",
-                           "traffic": "z0_subhalos", "chips": 1,
-                           "why": "z = 0 with planted subhalos"})
-    for p in m["per_layer"]:
-        if "dmcosmo.z6" in p.get("workloads", ()):
-            p["workloads"].append("dmcosmo.z0")
-    (dest / "BENCHMARK.json").write_text(json.dumps(m))
+def tiny_root(dest: Path, n_side: int = 48, n_halo: int = 300) -> Path:
+    """Copy BENCHMARK.json and benchmark/ under ``dest`` with every
+    configuration at ``n_side`` particles a side and every traffic mix at
+    ``n_halo`` halos: at 300, three hosts of >= 800 particles (the
+    recursion's size) with planted subhalos, a quarter of 48^3 in
+    halos."""
+    shutil.copy(REPO / "BENCHMARK.json", dest / "BENCHMARK.json")
     shutil.copytree(REPO / "benchmark", dest / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     for f in (dest / "benchmark" / "configs").glob("*.json"):
@@ -36,9 +29,6 @@ def tiny_root(dest: Path, n_side: int = 40, mmax_scale: float = 0.05) -> Path:
         f.write_text(json.dumps(c))
     for f in (dest / "benchmark" / "traffic").glob("*.json"):
         t = json.loads(f.read_text())
-        t["n_halo"] = max(8, int(t["n_halo"] * (n_side / 188) ** 3))
-        t["m_max"] = max(200.0, t["m_max"] * mmax_scale)
-        if "sub_min_host" in t:
-            t["sub_min_host"] = min(t["sub_min_host"], 150)
+        t["n_halo"] = n_halo
         f.write_text(json.dumps(t))
     return dest

@@ -9,8 +9,12 @@ physical, the comoving box times the scale factor, as the configs'
 
 Halo sizes are the quantiles, not random draws, of dN/dM ~ M^-slope
 between ``m_min`` and ``m_max`` dark-matter particles, so every seed
-gives the same sizes and the same work; the seed places the halos and
-draws their particles.  Each halo is a Plummer sphere truncated at 2.5
+gives the same sizes.  Where the mix names a ``halo_seed``, the halos'
+and subhalos' own particles (offsets from the centre, velocities about
+the bulk, the subhalos' orbits) are drawn from it, the same for every
+seed, so that the substructure search has the same work whatever the
+seed; the seed places the halos, gives their bulk velocities, the
+background, the gas's scatter, the stars and the particles' order.  Each halo is a Plummer sphere truncated at 2.5
 scale radii, sized so that its mean density is ``halo_overdensity``
 times the mean particle density: its edge then lies well above the
 3D linking length's density, so a halo is one FOF group.  Velocities
@@ -50,9 +54,11 @@ class Snapshot:
     a: float
     ptype: Optional[torch.Tensor] = None      # (N,) int8, None for DM only
     extras: Dict[str, torch.Tensor] = field(default_factory=dict)
-    # planted subhalo of each particle (-1: none), and the subhalos' sizes
+    # planted subhalo of each particle (-1: none), the subhalos' sizes and
+    # the halo (an index of ``halo_sizes``) each is planted in
     sub_of: Optional[torch.Tensor] = None
     sub_sizes: Optional[np.ndarray] = None
+    sub_host: Optional[np.ndarray] = None
     halo_sizes: Optional[np.ndarray] = None
 
     @property
@@ -206,6 +212,11 @@ def generate(cfg: dict, traffic: dict, seed: int,
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
+    # the halos' own particles: from the mix's halo_seed where it has one
+    hseed = int(t.get("halo_seed", seed))
+    hrng = np.random.default_rng(hseed)
+    hgen = torch.Generator(device=device)
+    hgen.manual_seed(hseed % (2 ** 63))
 
     # halo radii: mean density halo_overdensity x the mean particle density
     over = float(t["halo_overdensity"])
@@ -233,7 +244,7 @@ def generate(cfg: dict, traffic: dict, seed: int,
     # host bodies
     a_h = rt / 2.5
     hidx, off, v, _ = _plummer(torch.as_tensor(body, device=device),
-                               dev64(a_h), dev64(body * mdm), G, gen,
+                               dev64(a_h), dev64(body * mdm), G, hgen,
                                float(t["velocity_factor"]))
     hpos = dev64(centres)[hidx] + off
     hvel = dev64(bulk)[hidx] + v
@@ -245,15 +256,15 @@ def generate(cfg: dict, traffic: dict, seed: int,
         # on circular orbits at a random fraction of the host radius,
         # denser than the host by sub_overdensity, cold
         host_r = rt[sub_host]
-        rr = rng.uniform(0.3, 0.7, len(sub_sizes)) * host_r
-        dirs = rng.normal(size=(len(sub_sizes), 3))
+        rr = hrng.uniform(0.3, 0.7, len(sub_sizes)) * host_r
+        dirs = hrng.normal(size=(len(sub_sizes), 3))
         dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
         sc = centres[sub_host] + rr[:, None] * dirs
         # circular speed in the host's Plummer potential, perpendicular
         ah = a_h[sub_host]
         mh = sizes[sub_host] * mdm / (2.5 ** 3 / 7.25 ** 1.5)
         vc = np.sqrt(G * mh * rr * rr / (rr * rr + ah * ah) ** 1.5)
-        perp = np.cross(dirs, rng.normal(size=(len(sub_sizes), 3)))
+        perp = np.cross(dirs, hrng.normal(size=(len(sub_sizes), 3)))
         perp /= np.linalg.norm(perp, axis=1, keepdims=True)
         sv = bulk[sub_host] + vc[:, None] * perp
         rs = d_mean * (3.0 * sub_sizes / (4.0 * math.pi * over *
@@ -261,7 +272,7 @@ def generate(cfg: dict, traffic: dict, seed: int,
                        ) ** (1.0 / 3.0)
         sidx, soff, svel, _ = _plummer(
             torch.as_tensor(sub_sizes, device=device), dev64(rs / 2.5),
-            dev64(sub_sizes * mdm), G, gen, float(t["velocity_factor"]))
+            dev64(sub_sizes * mdm), G, hgen, float(t["velocity_factor"]))
         parts_pos.append(dev64(sc)[sidx] + soff)
         parts_vel.append(dev64(sv)[sidx] + svel)
         halo_of = torch.cat([halo_of, torch.as_tensor(sub_host,
@@ -290,9 +301,10 @@ def generate(cfg: dict, traffic: dict, seed: int,
         return Snapshot(pos=_f32(pos, box), vel=vel.float(),
                         mass=mass.float(), boxsize=box, a=a,
                         sub_of=sub_of, sub_sizes=sub_sizes,
-                        halo_sizes=sizes)
+                        sub_host=sub_host, halo_sizes=sizes)
     return _with_gas(cfg, t, e, pos, vel, mass, halo_of, sub_of, sizes,
-                     rt, masses["gas"], box, d_mean, a, gen, sub_sizes)
+                     rt, masses["gas"], box, d_mean, a, gen, sub_sizes,
+                     sub_host)
 
 
 def _f32(pos: torch.Tensor, box: float) -> torch.Tensor:
@@ -303,7 +315,7 @@ def _f32(pos: torch.Tensor, box: float) -> torch.Tensor:
 
 
 def _with_gas(cfg, t, e, pos, vel, mass, halo_of, sub_of, sizes, rt, mgas,
-              box, d_mean, a, gen, sub_sizes) -> Snapshot:
+              box, d_mean, a, gen, sub_sizes, sub_host) -> Snapshot:
     """One gas particle per dark-matter particle at the EAGLE offset
     (half a cell along the diagonal), scaled inside a halo by its radius
     over its Lagrangian radius; stars and hydro fields."""
@@ -371,4 +383,5 @@ def _with_gas(cfg, t, e, pos, vel, mass, halo_of, sub_of, sizes, rt, mgas,
     return Snapshot(pos=_f32(pos_all, box), vel=vel_all.float(),
                     mass=mass_all.float(), boxsize=box, a=a, ptype=ptype,
                     extras={k: v.float() for k, v in extras.items()},
-                    sub_of=sub_all, sub_sizes=sub_sizes, halo_sizes=sizes)
+                    sub_of=sub_all, sub_sizes=sub_sizes, sub_host=sub_host,
+                    halo_sizes=sizes)
