@@ -1,0 +1,10 @@
+"""Kernel launch calls (``cudaLaunchKernel*``, ``cuLaunchKernel*``)
+starting inside the traced catalogs' ``catalog`` spans, a catalog;
+nothing without the program's spans."""
+
+from benchmark.harness import spans
+
+
+def read(ctx):
+    cats = spans.traced(ctx)
+    return None if cats is None else cats.host_calls("catalog", "launches")

@@ -100,7 +100,8 @@ def test_invoke_matches_reference(reference, mock, given, tmp_path):
     d, want = reference
     got = _invoke(given, mock, outname=str(tmp_path / "torch"),
                   write_output=True)
-    assert set(got) == set(want)
+    # the port's result adds the catalog's stage times
+    assert set(got) == set(want) | {"timings"}
     assert got["ngroups"] == want["ngroups"] > 2
     np.testing.assert_array_equal(got["group_id"],
                                   np.asarray(want["group_id"]))
@@ -113,6 +114,14 @@ def test_invoke_matches_reference(reference, mock, given, tmp_path):
         (d / "jax.catalog_groups").read_bytes()
     assert (tmp_path / "torch.properties").stat().st_size > 0
     assert (tmp_path / "torch.catalog_particles").stat().st_size > 0
+
+
+def test_invoke_returns_the_stage_times(mock):
+    """``timings`` holds ``find_structures``' stage seconds."""
+    got = _invoke("arrays", mock)
+    assert {"to_device", "fof", "properties"} <= set(got["timings"])
+    assert all(isinstance(v, float) and v >= 0.0
+               for v in got["timings"].values())
 
 
 def test_invoke_without_ids_or_output_writes_nothing(mock, tmp_path,

@@ -38,7 +38,7 @@ from . import halos, haloprops, properties as props_mod, substructure, unbind
 from ..ops import so as so_ops
 from ..utils import config as C
 from ..utils import units
-from ..utils.timing import device_clock
+from ..utils.timing import span
 from ..utils.transfer import fetch_bulk
 
 
@@ -119,7 +119,6 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     results on ``mesh.home`` (``device`` is then not read); the field
     search shards a periodic box only, as in the JAX package."""
     device = torch.device(device) if mesh is None else mesh.home
-    clock = device_clock(device)
     timings: Dict[str, float] = {}
     units.calc_cosmo_params(opt, opt.a)
     pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
@@ -134,27 +133,27 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
     spos, svel, smass = (pos, vel, mass) if dmi is None else \
         (pos[dmi], vel[dmi], mass[dmi])
 
-    t0 = clock()
     if opt.iSingleHalo:
         # the input is one halo: no field search, the whole set is group 1
         # (reference main.cxx:285), its linking lengths optionally scaled
         # from its bulk properties (ScaleLinkingLengths, main.cxx:333)
-        if opt.iScaleLengths:
-            haloprops.scale_linking_lengths(
-                opt, spos.cpu().numpy(), svel.cpu().numpy(),
-                smass.cpu().numpy())
-        pfof = torch.ones(spos.shape[0], dtype=torch.int64, device=device)
+        with span("halos.fof", timings, "fof", device=device):
+            if opt.iScaleLengths:
+                haloprops.scale_linking_lengths(
+                    opt, spos.cpu().numpy(), svel.cpu().numpy(),
+                    smass.cpu().numpy())
+            pfof = torch.ones(spos.shape[0], dtype=torch.int64,
+                              device=device)
         ng, pfof3d, keepfof, parent3d = 1, None, 0, None
-        timings["fof"] = clock() - t0
     else:
-        if mesh is not None and boxsize:
-            fres = halos.search_full_set_sharded(opt, spos, svel, smass,
-                                                 boxsize, mesh)
-        else:
-            fres = halos.search_full_set(opt, spos, svel, smass,
-                                         boxsize=boxsize)
+        with span("halos.fof", timings, "fof", device=device):
+            if mesh is not None and boxsize:
+                fres = halos.search_full_set_sharded(opt, spos, svel, smass,
+                                                     boxsize, mesh)
+            else:
+                fres = halos.search_full_set(opt, spos, svel, smass,
+                                             boxsize=boxsize)
         pfof, ng = fres.pfof, fres.ngroups
-        timings["fof"] = clock() - t0
         pfof3d = fres.pfof3d
         # iKeepFOF: the 3DFOF envelopes are split off (never unbound) and
         # re-attached as ids 1..keepfof afterwards
@@ -175,62 +174,59 @@ def search_and_unbind(opt: C.Options, pos, vel, mass,
         (None, 0)
     W = gid_map = None
     if opt.uinfo.unbindflag and ng > 0 and opt.iBoundHalos >= 1:
-        t0 = clock()
-        minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else opt.MinSize
-        ures = _check_unbound(opt, mesh, spos, svel, smass, pfof, ng,
-                              boxsize, minsize)
-        pfof, ng, W = ures.pfof, ures.ngroups, ures.W
-        gid_map = ures.gid_map
-        timings["unbind"] = clock() - t0
+        with span("unbind", timings, "unbind", device=device):
+            minsize = opt.HaloMinSize if opt.HaloMinSize > 0 else \
+                opt.MinSize
+            ures = _check_unbound(opt, mesh, spos, svel, smass, pfof, ng,
+                                  boxsize, minsize)
+            pfof, ng, W = ures.pfof, ures.ngroups, ures.W
+            gid_map = ures.gid_map
 
     hostid = parent = level = None
     if opt.iSubSearch and ng > 0:
-        t0 = clock()
-        pfof, ng, hostid, parent, level = substructure.search_sub_sub(
-            opt, spos, svel, smass, pfof, ng, boxsize=boxsize,
-            timings=timings, mesh=mesh)
-        timings["substructure"] = clock() - t0
+        with span("substructure", timings, "substructure", device=device):
+            pfof, ng, hostid, parent, level = substructure.search_sub_sub(
+                opt, spos, svel, smass, pfof, ng, boxsize=boxsize,
+                timings=timings, mesh=mesh)
         if opt.iBoundHalos > 1 and opt.uinfo.unbindflag and ng > 0 and \
                 dmi is None:
-            t0 = clock()
-            pfof, ng, W, hostid, parent, level = _reunbind_halos(
-                opt, spos, svel, smass, pfof, ng, W, hostid, parent, level,
-                boxsize, mesh)
-            timings["unbind"] = timings.get("unbind", 0.0) + clock() - t0
+            with span("unbind", timings, "unbind", device=device):
+                pfof, ng, W, hostid, parent, level = _reunbind_halos(
+                    opt, spos, svel, smass, pfof, ng, W, hostid, parent,
+                    level, boxsize, mesh)
 
     if dmi is not None:
-        t0 = clock()
-        grp_b = baryons_mod.search_baryons(opt, spos, svel, pfof, pos[bi],
-                                           vel[bi], boxsize=boxsize,
-                                           mesh=mesh)
-        # DM and baryon labels spliced into full-set order
-        pfof = _scatter(pfof, dmi, n)
-        pfof[bi] = grp_b.long()
-        if W is not None:
-            # the field unbind's potentials live on the DM subset; the
-            # combined pass overwrites them unless every group dissolved
-            W = _scatter(W, dmi, n)
-        # so do the pre-unbind labels for the inclusive masses: baryons
-        # are untagged there
-        if pfof_fof is not None:
-            pfof_fof = _scatter(pfof_fof, dmi, n)
-        # the groups are unbound again with their baryons (reference
-        # search.cxx:3500+), down to MinSize, not HaloMinSize
-        if opt.uinfo.unbindflag and ng > 0:
-            ures = _check_unbound(opt, mesh, pos, vel, mass, pfof, ng,
-                                  boxsize, opt.MinSize)
-            pfof, W = ures.pfof, ures.W
-            if parent is not None:
-                hostid, parent, level = _remap_hierarchy(
-                    ures.gid_map.cpu().numpy(), ures.ngroups, hostid,
-                    parent, level)
-            ng = ures.ngroups
-            # old FOF id -> final id through both renumberings (field
-            # halo ids pass the substructure splice unchanged)
-            gm = ures.gid_map
-            gid_map = gm if gid_map is None else \
-                gm[torch.clamp(gid_map, 0, gm.shape[0] - 1)]
-        timings["baryons"] = clock() - t0
+        with span("baryons", timings, "baryons", device=device):
+            grp_b = baryons_mod.search_baryons(opt, spos, svel, pfof, pos[bi],
+                                               vel[bi], boxsize=boxsize,
+                                               mesh=mesh)
+            # DM and baryon labels spliced into full-set order
+            pfof = _scatter(pfof, dmi, n)
+            pfof[bi] = grp_b.long()
+            if W is not None:
+                # the field unbind's potentials live on the DM subset; the
+                # combined pass overwrites them unless every group dissolved
+                W = _scatter(W, dmi, n)
+            # so do the pre-unbind labels for the inclusive masses: baryons
+            # are untagged there
+            if pfof_fof is not None:
+                pfof_fof = _scatter(pfof_fof, dmi, n)
+            # the groups are unbound again with their baryons (reference
+            # search.cxx:3500+), down to MinSize, not HaloMinSize
+            if opt.uinfo.unbindflag and ng > 0:
+                ures = _check_unbound(opt, mesh, pos, vel, mass, pfof, ng,
+                                      boxsize, opt.MinSize)
+                pfof, W = ures.pfof, ures.W
+                if parent is not None:
+                    hostid, parent, level = _remap_hierarchy(
+                        ures.gid_map.cpu().numpy(), ures.ngroups, hostid,
+                        parent, level)
+                ng = ures.ngroups
+                # old FOF id -> final id through both renumberings (field
+                # halo ids pass the substructure splice unchanged)
+                gm = ures.gid_map
+                gid_map = gm if gid_map is None else \
+                    gm[torch.clamp(gid_map, 0, gm.shape[0] - 1)]
 
     if keepfof > 0:
         pfof = torch.where(pfof > 0, pfof + keepfof, env_pfof)
@@ -384,69 +380,74 @@ def find_structures(opt: C.Options, pos, vel, mass,
     its shards (``search_and_unbind``), the properties with whole groups
     per shard and the all-particle SO from the shards' histograms."""
     device = torch.device(device) if mesh is None else mesh.home
-    clock = device_clock(device)
-    pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
-    ptype = _as_ptype(ptype, device)
-    sres = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize,
-                             device=device, ptype=ptype, mesh=mesh)
-    timings = dict(sres.timings)
-    pfof, ng, W = sres.pfof, sres.ngroups, sres.W
-    gid_map = None if sres.gid_map is None else sres.gid_map.cpu().numpy()
+    with span("catalog", particles=int(pos.shape[0])):
+        timings: Dict[str, float] = {}
+        with span("to_device", timings, "to_device", device=device):
+            pos, vel, mass = (_as_f32(a, device) for a in (pos, vel, mass))
+            ptype = _as_ptype(ptype, device)
+        sres = search_and_unbind(opt, pos, vel, mass, boxsize=boxsize,
+                                 device=device, ptype=ptype, mesh=mesh)
+        timings.update(sres.timings)
+        pfof, ng, W = sres.pfof, sres.ngroups, sres.W
+        gid_map = None if sres.gid_map is None else sres.gid_map.cpu().numpy()
 
-    hostid, parent, level, stype = sres.hostid, sres.parent, sres.level, \
-        None
-    keepfof = sres.num3dfof
-    if keepfof > 0:
-        hostid, parent, level, stype = _keepfof_hierarchy(
-            keepfof, ng - keepfof, sres.parent3d.cpu().numpy(), gid_map,
-            hostid, parent, level)
+        hostid, parent, level, stype = sres.hostid, sres.parent, sres.level, \
+            None
+        keepfof = sres.num3dfof
+        if keepfof > 0:
+            hostid, parent, level, stype = _keepfof_hierarchy(
+                keepfof, ng - keepfof, sres.parent3d.cpu().numpy(), gid_map,
+                hostid, parent, level)
 
-    # the property stage runs on the tagged particles, group by group;
-    # with none tagged, on one untagged particle: row 0 alone
-    t0 = clock()
-    pertype = ptype is not None and int(torch.unique(ptype).shape[0]) > 1
-    hydro = {k: _as_f32(v, device) for k, v in (extras or {}).items()
-             if k in props_mod.HYDRO_FIELDS and v is not None}
-    if mesh is not None and ng > 0:
-        from ..parallel.distributed_props import distributed_properties
+        # the property stage runs on the tagged particles, group by group;
+        # with none tagged, on one untagged particle: row 0 alone
+        with span("properties", timings, "properties", device=device):
+            pertype = ptype is not None and \
+                int(torch.unique(ptype).shape[0]) > 1
+            # the hydro fields' copy stays here, where they are first needed
+            with span("to_device", timings, "to_device", device=device):
+                hydro = {k: _as_f32(v, device)
+                         for k, v in (extras or {}).items()
+                         if k in props_mod.HYDRO_FIELDS and v is not None}
+            if mesh is not None and ng > 0:
+                from ..parallel.distributed_props import distributed_properties
 
-        props_np = distributed_properties(
-            opt, pos, vel, mass, pfof, ng, mesh, W=W, ptype=ptype,
-            boxsize=boxsize, pertype=pertype, **hydro)
-    else:
-        sub = _tagged_by_group(pfof)
-        if sub.shape[0] == 0:
-            sub = torch.zeros(1, dtype=torch.int64, device=device)
-        pr = props_mod.property_bundle(
-            opt, pos[sub], vel[sub], mass[sub], pfof[sub], ng,
-            W=None if W is None else W[sub],
-            ptype=None if ptype is None else ptype[sub], boxsize=boxsize,
-            pertype=pertype, **{k: v[sub] for k, v in hydro.items()})
-        props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
-        del pr, sub
-    timings["properties"] = clock() - t0
-    del hydro
+                props_np = distributed_properties(
+                    opt, pos, vel, mass, pfof, ng, mesh, W=W, ptype=ptype,
+                    boxsize=boxsize, pertype=pertype, **hydro)
+            else:
+                sub = _tagged_by_group(pfof)
+                if sub.shape[0] == 0:
+                    sub = torch.zeros(1, dtype=torch.int64, device=device)
+                pr = props_mod.property_bundle(
+                    opt, pos[sub], vel[sub], mass[sub], pfof[sub], ng,
+                    W=None if W is None else W[sub],
+                    ptype=None if ptype is None else ptype[sub],
+                    boxsize=boxsize, pertype=pertype,
+                    **{k: v[sub] for k, v in hydro.items()})
+                props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
+                del pr, sub
+        del hydro
 
-    so_offsets = so_indices = None
-    if opt.iInclusiveHalo > 0 and ng > 0:
-        t0 = clock()
-        so_offsets, so_indices = _so_stage(
-            opt, pos, vel, mass, props_np, ng, hostid, boxsize,
-            pfof_fof=sres.pfof_fof, ng_fof=sres.ngroups_fof,
-            gid_map=gid_map, mesh=mesh)
-        timings["so"] = clock() - t0
+        so_offsets = so_indices = None
+        if opt.iInclusiveHalo > 0 and ng > 0:
+            with span("so", timings, "so", device=device):
+                so_offsets, so_indices = _so_stage(
+                    opt, pos, vel, mass, props_np, ng, hostid, boxsize,
+                    pfof_fof=sres.pfof_fof, ng_fof=sres.ngroups_fof,
+                    gid_map=gid_map, mesh=mesh)
 
-    # the catalog's per-particle payloads: the one time they leave the
-    # device(s)
-    return CatalogResult(
-        pfof=fetch_bulk(pfof.to(torch.int32), "catalog_pfof"), ngroups=ng,
-        props=props_np,
-        W=None if W is None else fetch_bulk(W, "catalog_W"),
-        pfof3d=None if sres.pfof3d is None else
-        fetch_bulk(sres.pfof3d.to(torch.int32), "pfof3d"),
-        timings=timings, hostid=hostid, parent=parent,
-        hierarchy_level=level, so_offsets=so_offsets, so_indices=so_indices,
-        stype=stype)
+        # the catalog's per-particle payloads: the one time they leave the
+        # device(s)
+        return CatalogResult(
+            pfof=fetch_bulk(pfof.to(torch.int32), "catalog_pfof"), ngroups=ng,
+            props=props_np,
+            W=None if W is None else fetch_bulk(W, "catalog_W"),
+            pfof3d=None if sres.pfof3d is None else
+            fetch_bulk(sres.pfof3d.to(torch.int32), "pfof3d"),
+            timings=timings, hostid=hostid, parent=parent,
+            hierarchy_level=level, so_offsets=so_offsets,
+            so_indices=so_indices, stype=stype)
 
 
 _SO_KEYS = ("gMvir", "gRvir", "gM200c", "gR200c", "gM200m", "gR200m",

@@ -68,27 +68,10 @@ from ..kernels._common import BIG_I32
 from ..ops import fof, segments as seg
 from ..utils import config as C
 from ..utils import telemetry
-from ..utils.timing import device_clock
+from ..utils.timing import span
 from ..utils.transfer import fetch_small
 from ..parallel import distributed_localfield
 from . import bgfield, localfield, unbind as unbind_mod
-
-
-class _Laps:
-    """Per-phase time of the recursion (density, prep, outliers, subset,
-    cores, unbind, splice), read with the synchronising stage clock and
-    summed over levels into ``timings["subsub_<phase>"]``."""
-
-    def __init__(self, device: torch.device, timings: Dict[str, float]):
-        self.clock = device_clock(device)
-        self.timings = timings
-        self.t0 = self.clock()
-
-    def lap(self, phase: str) -> None:
-        t = self.clock()
-        key = f"subsub_{phase}"
-        self.timings[key] = self.timings.get(key, 0.0) + (t - self.t0)
-        self.t0 = t
 
 
 # ---------------------------------------------------------------------------
@@ -832,8 +815,9 @@ def search_level_subsets(opt: C.Options, entries: List[dict]) -> None:
     """The subset search of a level's structures (``search_sub_sub``'s
     entries): ``search_subset_batch`` whenever ``_batchable_subset``
     holds, else ``search_subset`` structure by structure.  Counts
-    ``subset_batched_*`` / ``subset_sequential_*`` structures and padded
-    particles in ``utils/telemetry``, as the reference does."""
+    ``subset_batched_*`` structures and padded particles and
+    ``subset_sequential_structures`` in ``utils/telemetry``, as the
+    reference does."""
     if _batchable_subset(opt):
         search_subset_batch(opt, entries)
         telemetry.count("subset_batched_structures", len(entries))
@@ -846,7 +830,6 @@ def search_level_subsets(opt: C.Options, entries: List[dict]) -> None:
             opt, e["ppos"][:nsub], e["pvel"][:nsub], e["pmass"][:nsub],
             e["ell"][:nsub], bounds=e["bounds"], npad=e["npad"])
         telemetry.count("subset_sequential_structures")
-        telemetry.count("subset_sequential_particles", e["npad"])
 
 
 # ---------------------------------------------------------------------------
@@ -1079,57 +1062,64 @@ def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
     minsize = max(int(nvalid * opt.halocorenfac *
                       opt.halocorenumfaciter ** (sublevel - 1)), opt.MinSize)
 
-    core = torch.zeros(n, dtype=torch.int64, device=pos.device)
-    ncores = 0
-    # the linking length only shrinks (halocorexfaciter <= 1): the loop-0
-    # table holds every later loop's pairs
-    edges = None
-    if opt.halocorexfaciter <= 1.0:
-        edges = fof.build_edges(pos, math.sqrt(ellx2), fields={"vel": vel},
-                                predicate=fof.Pred3D(float(ellx2)),
-                                bounds=bounds)
-    untagged = valid & (pfof_sub == 0)
-    for loop in range(max(1, opt.halocorenumloops)):
-        elig = untagged if loop == 0 else untagged & (core == 1)
-        pred = Pred6DCore(float(ellx2), float(max(ellv2, 1e-30)))
-        if edges is not None:
-            fields_s = dict(edges.fields_s)
-            fields_s["elig"] = elig.to(torch.int32)[edges.order]
-            mask = fof.refine_edge_mask(edges.pos_s, fields_s, edges.erow,
-                                        edges.ecol, edges.boxsize, pred)
-            labels = fof.fof_labels_from_edges(
-                edges.erow[mask], edges.ecol[mask], n,
-                undirected=edges.undirected)
-            pfc_s, ngc = fof.renumber_by_size(labels, minsize,
-                                              orig_index=edges.order)
-            pfc = _scatter_back(pfc_s.long(), edges.order)
-        else:
-            pfc, ngc = fof.fof3d(pos, math.sqrt(ellx2), min_size=minsize,
-                                 vel=vel, extra_fields={
-                                     "elig": elig.to(torch.int32)},
-                                 predicate=pred, bounds=bounds)
-            pfc = pfc.long()
-        if ngc == 0:
-            break
-        if loop == 0:
-            core, ncores = pfc, ngc
-        else:
-            # the refined main core replaces core 1; extra groups append
-            core = torch.where((core == 1) & (pfc == 0), 0, core)
-            core = torch.where(pfc == 1, 1, core)
-            if ngc > 1:
-                core = torch.where(pfc > 1, pfc - 1 + ncores, core)
-                ncores += ngc - 1
-        ellx2 *= opt.halocorexfaciter ** 2
-        ellv2 *= opt.halocorevfaciter ** 2
-        minsize = max(int(minsize * opt.halocorenumfaciter), opt.MinSize)
-        if minsize * opt.halocorenumfaciter >= nvalid:
-            break
+    with span("cores.fof"):
+        core = torch.zeros(n, dtype=torch.int64, device=pos.device)
+        ncores = 0
+        # the linking length only shrinks (halocorexfaciter <= 1): the
+        # loop-0 table holds every later loop's pairs
+        edges = None
+        if opt.halocorexfaciter <= 1.0:
+            edges = fof.build_edges(pos, math.sqrt(ellx2),
+                                    fields={"vel": vel},
+                                    predicate=fof.Pred3D(float(ellx2)),
+                                    bounds=bounds)
+        untagged = valid & (pfof_sub == 0)
+        for loop in range(max(1, opt.halocorenumloops)):
+            elig = untagged if loop == 0 else untagged & (core == 1)
+            pred = Pred6DCore(float(ellx2), float(max(ellv2, 1e-30)))
+            if edges is not None:
+                fields_s = dict(edges.fields_s)
+                fields_s["elig"] = elig.to(torch.int32)[edges.order]
+                mask = fof.refine_edge_mask(edges.pos_s, fields_s,
+                                            edges.erow, edges.ecol,
+                                            edges.boxsize, pred)
+                labels = fof.fof_labels_from_edges(
+                    edges.erow[mask], edges.ecol[mask], n,
+                    undirected=edges.undirected)
+                pfc_s, ngc = fof.renumber_by_size(labels, minsize,
+                                                  orig_index=edges.order)
+                pfc = _scatter_back(pfc_s.long(), edges.order)
+            else:
+                pfc, ngc = fof.fof3d(pos, math.sqrt(ellx2),
+                                     min_size=minsize, vel=vel,
+                                     extra_fields={
+                                         "elig": elig.to(torch.int32)},
+                                     predicate=pred, bounds=bounds)
+                pfc = pfc.long()
+            if ngc == 0:
+                break
+            if loop == 0:
+                core, ncores = pfc, ngc
+            else:
+                # the refined main core replaces core 1; extra groups
+                # append
+                core = torch.where((core == 1) & (pfc == 0), 0, core)
+                core = torch.where(pfc == 1, 1, core)
+                if ngc > 1:
+                    core = torch.where(pfc > 1, pfc - 1 + ncores, core)
+                    ncores += ngc - 1
+            ellx2 *= opt.halocorexfaciter ** 2
+            ellv2 *= opt.halocorevfaciter ** 2
+            minsize = max(int(minsize * opt.halocorenumfaciter),
+                          opt.MinSize)
+            if minsize * opt.halocorenumfaciter >= nvalid:
+                break
     if ncores < 2:
         return torch.zeros(n, dtype=torch.int64, device=pos.device), 0
     if opt.iHaloCoreSearch >= 2 and opt.iPhaseCoreGrowth:
-        core = _phase_tensor_growth(pos, vel, mass, valid, pfof_sub, core,
-                                    ncores)
+        with span("cores.growth"):
+            core = _phase_tensor_growth(pos, vel, mass, valid, pfof_sub,
+                                        core, ncores)
     return core, ncores
 
 
@@ -1270,86 +1260,96 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
     # the splice below writes into pfof: always a copy, never the caller's
     # tensor (which .to() returns as it is when it already fits)
     pfof = torch.as_tensor(pfof).to(dev, torch.int64, copy=True)
-    laps = _Laps(dev, timings if timings is not None else {})
-    n = pos.shape[0]
-    ng_total = int(ngroups)
-    parent = np.zeros(ng_total + 1, np.int64)
-    level_of = np.zeros(ng_total + 1, np.int32)
-    # pad-lattice pitch beyond every linking length of the search
-    spacing = 3.0 * opt.ellxscale * opt.ellphys * max(1.0, opt.ellxfac)
-    sizes0_t = seg.group_sizes(pfof, ng_total)
-    sizes0 = sizes0_t.cpu().numpy()
-    queue = [g for g in range(1, ng_total + 1) if sizes0[g] >= C.MINSUBSIZE]
+    laps = timings if timings is not None else {}
 
-    dens_global = None
-    if opt.iSubSearch and queue and not opt.iHaloLocalDensity:
-        act = (pfof > 0) & (sizes0_t[pfof] >= C.MINSUBSIZE)
-        dens_global = _global_density(opt, pos, vel, act, spacing, mesh,
-                                      boxsize)
-    laps.lap("density")
+    def lap(phase: str):
+        return span(f"substructure.{phase}", laps, f"subsub_{phase}",
+                    device=dev)
+
+    with lap("density"):
+        ng_total = int(ngroups)
+        parent = np.zeros(ng_total + 1, np.int64)
+        level_of = np.zeros(ng_total + 1, np.int32)
+        # pad-lattice pitch beyond every linking length of the search
+        spacing = 3.0 * opt.ellxscale * opt.ellphys * max(1.0, opt.ellxfac)
+        sizes0_t = seg.group_sizes(pfof, ng_total)
+        sizes0 = sizes0_t.cpu().numpy()
+        queue = [g for g in range(1, ng_total + 1)
+                 if sizes0[g] >= C.MINSUBSIZE]
+        dens_global = None
+        if opt.iSubSearch and queue and not opt.iHaloLocalDensity:
+            act = (pfof > 0) & (sizes0_t[pfof] >= C.MINSUBSIZE)
+            dens_global = _global_density(opt, pos, vel, act, spacing, mesh,
+                                          boxsize)
 
     cores_on = opt.iHaloCoreSearch > 0
     for level in range(1, C.MAXSUBLEVEL + 1):
         if not queue or not opt.iSubSearch:
             break
-        lvl_order = torch.argsort(pfof, stable=True)
-        offs = torch.searchsorted(
-            pfof[lvl_order], torch.arange(ng_total + 2, device=dev)).cpu()
-        offs = offs.numpy()
-        prep = []
-        for g in queue:
-            nsub = int(offs[g + 1] - offs[g])
-            if nsub < C.MINSUBSIZE:
-                continue
-            npad = _next_pow2(nsub)
-            prep.append({"g": g, "start": int(offs[g]), "nsub": nsub,
-                         "npad": npad, "cellsize": _cellsize(opt, nsub),
-                         "side": int(np.ceil(max(npad - nsub, 1) ** (1 / 3)))})
-        telemetry.count(f"subsub_level{level}_structures", len(prep))
-        _prep_level(opt, prep, pos, vel, mass, dens_global, lvl_order,
-                    boxsize, spacing)
-        laps.lap("prep")
-        _outliers_level(opt, prep)
-        laps.lap("outliers")
-        if mesh is not None:
-            from ..parallel.distributed_substructure import \
-                distributed_structure_search
+        with span("substructure.level", level=level) as lvl:
+            with lap("prep"):
+                lvl_order = torch.argsort(pfof, stable=True)
+                offs = torch.searchsorted(
+                    pfof[lvl_order],
+                    torch.arange(ng_total + 2, device=dev)).cpu().numpy()
+                prep = []
+                for g in queue:
+                    nsub = int(offs[g + 1] - offs[g])
+                    if nsub < C.MINSUBSIZE:
+                        continue
+                    npad = _next_pow2(nsub)
+                    prep.append({
+                        "g": g, "start": int(offs[g]), "nsub": nsub,
+                        "npad": npad, "cellsize": _cellsize(opt, nsub),
+                        "side": int(np.ceil(max(npad - nsub, 1) ** (1 / 3)))})
+                lvl.set(structures=len(prep))
+                telemetry.count(f"subsub_level{level}_structures",
+                                len(prep))
+                _prep_level(opt, prep, pos, vel, mass, dens_global,
+                            lvl_order, boxsize, spacing)
+            with lap("outliers"):
+                _outliers_level(opt, prep)
+            if mesh is not None:
+                from ..parallel.distributed_substructure import \
+                    distributed_structure_search
 
-            distributed_structure_search(opt, prep, level, cores_on, mesh)
-        else:
-            search_level_subsets(opt, prep)
-            laps.lap("subset")
-            for e in prep:
-                _cores_and_merges(opt, e, level, cores_on)
-        pend = [e for e in prep if e["ng_sub"] > 0]
-        laps.lap("cores")
-        telemetry.count(f"subsub_level{level}_candidates",
-                        sum(e["ng_sub"] for e in pend))
-        if pend and opt.uinfo.unbindflag:
-            _unbind_level(opt, pend)
-        laps.lap("unbind")
-        pend = [e for e in pend if e["ng_sub"] > 0]
-        new_queue: List[int] = []
-        if pend:
-            ngmax = max(e["ng_sub"] for e in pend)
-            sizes_h = torch.stack([seg.group_sizes(e["sub"], ngmax)
-                                   for e in pend]).cpu().numpy()
-        for j, e in enumerate(pend):
-            g, ng_sub = e["g"], e["ng_sub"]
-            sel = e["sub"] > 0
-            pfof[e["idx"][:e["nsub"]][sel]] = ng_total + e["sub"][sel]
-            parent = np.concatenate([parent, np.full(ng_sub, g, np.int64)])
-            level_of = np.concatenate([level_of,
-                                       np.full(ng_sub, level, np.int32)])
-            new_queue.extend(ng_total + s for s in range(1, ng_sub + 1)
-                             if sizes_h[j][s] >= C.MINSUBSIZE)
-            ng_total += ng_sub
-        telemetry.count(f"subsub_level{level}_found",
-                        sum(e["ng_sub"] for e in pend))
-        queue = new_queue
-        for e in prep:
-            e.clear()
-        laps.lap("splice")
+                with lap("cores"):
+                    distributed_structure_search(opt, prep, level, cores_on,
+                                                 mesh)
+            else:
+                with lap("subset"):
+                    search_level_subsets(opt, prep)
+                with lap("cores"):
+                    for e in prep:
+                        _cores_and_merges(opt, e, level, cores_on)
+            with lap("unbind"):
+                pend = [e for e in prep if e["ng_sub"] > 0]
+                telemetry.count(f"subsub_level{level}_candidates",
+                                sum(e["ng_sub"] for e in pend))
+                if pend and opt.uinfo.unbindflag:
+                    _unbind_level(opt, pend)
+            with lap("splice"):
+                pend = [e for e in pend if e["ng_sub"] > 0]
+                queue = []
+                if pend:
+                    ngmax = max(e["ng_sub"] for e in pend)
+                    sizes_h = torch.stack([seg.group_sizes(e["sub"], ngmax)
+                                           for e in pend]).cpu().numpy()
+                for j, e in enumerate(pend):
+                    g, ng_sub = e["g"], e["ng_sub"]
+                    sel = e["sub"] > 0
+                    pfof[e["idx"][:e["nsub"]][sel]] = ng_total + e["sub"][sel]
+                    parent = np.concatenate(
+                        [parent, np.full(ng_sub, g, np.int64)])
+                    level_of = np.concatenate(
+                        [level_of, np.full(ng_sub, level, np.int32)])
+                    queue.extend(ng_total + s for s in range(1, ng_sub + 1)
+                                 if sizes_h[j][s] >= C.MINSUBSIZE)
+                    ng_total += ng_sub
+                telemetry.count(f"subsub_level{level}_found",
+                                sum(e["ng_sub"] for e in pend))
+                for e in prep:
+                    e.clear()
     return pfof, ng_total, _hostid(parent), parent, level_of
 
 
@@ -1411,36 +1411,45 @@ def _cores_and_merges(opt: C.Options, e: dict, level: int,
     """The merger-core search of one structure (cores beyond the main one
     become substructures after its subset groups) and the phase merges
     (``coresubmergemindist`` > 0) on the host."""
-    nsub, ng_sub, sub = e["nsub"], e["ng_sub"], e["sub"]
-    ppos, pvel, pmass = (e[k][:nsub] for k in ("ppos", "pvel", "pmass"))
-    host = None
+    with span("substructure.cores.structure", g=e.get("g"),
+              nsub=e["nsub"], level=level):
+        nsub, ng_sub, sub = e["nsub"], e["ng_sub"], e["sub"]
+        ppos, pvel, pmass = (e[k][:nsub]
+                             for k in ("ppos", "pvel", "pmass"))
+        host = None
 
-    def host_arrays():
-        return tuple(a.cpu().numpy() for a in (ppos, pvel, pmass))
+        def host_arrays():
+            return tuple(a.cpu().numpy() for a in (ppos, pvel, pmass))
 
-    if cores_on and level <= opt.maxnlevelcoresearch:
-        core, ncores = halo_core_search(opt, ppos, pvel, pmass,
-                                        e["valid"][:nsub], sub,
-                                        sublevel=level, bounds=e["bounds"])
-        if ncores >= 2:
-            extra = (core > 1) & (sub == 0)
-            sub = torch.where(extra, core - 1 + ng_sub, sub)
-            ncore_extra = ncores - 1
-            if opt.coresubmergemindist > 0 and ng_sub > 0:
-                host = host_arrays()
-                sub_np, ncore_extra = merge_substructures_cores_phase(
-                    *host, sub.cpu().numpy(), ng_sub, ncore_extra,
+        if cores_on and level <= opt.maxnlevelcoresearch:
+            core, ncores = halo_core_search(
+                opt, ppos, pvel, pmass, e["valid"][:nsub], sub,
+                sublevel=level, bounds=e["bounds"])
+            if ncores >= 2:
+                extra = (core > 1) & (sub == 0)
+                sub = torch.where(extra, core - 1 + ng_sub, sub)
+                ncore_extra = ncores - 1
+                if opt.coresubmergemindist > 0 and ng_sub > 0:
+                    with span("cores.merge"):
+                        host = host_arrays()
+                        sub_np, ncore_extra = \
+                            merge_substructures_cores_phase(
+                                *host, sub.cpu().numpy(), ng_sub,
+                                ncore_extra, opt.coresubmergemindist)
+                        sub = torch.from_numpy(
+                            sub_np.astype(np.int64)).to(sub.device)
+                telemetry.count("subsub_cores_promoted", ncore_extra)
+                ng_sub += ncore_extra
+        if opt.coresubmergemindist > 0 and ng_sub > 1:
+            with span("cores.merge"):
+                host = host or host_arrays()
+                sub_np, ns_new, nc_new = merge_substructures_phase(
+                    *host, sub.cpu().numpy(), ng_sub, 0,
                     opt.coresubmergemindist)
-                sub = torch.from_numpy(sub_np.astype(np.int64)).to(sub.device)
-            telemetry.count("subsub_cores_promoted", ncore_extra)
-            ng_sub += ncore_extra
-    if opt.coresubmergemindist > 0 and ng_sub > 1:
-        host = host or host_arrays()
-        sub_np, ns_new, nc_new = merge_substructures_phase(
-            *host, sub.cpu().numpy(), ng_sub, 0, opt.coresubmergemindist)
-        sub = torch.from_numpy(sub_np.astype(np.int64)).to(sub.device)
-        ng_sub = ns_new + nc_new
-    e["sub"], e["ng_sub"] = sub, int(ng_sub)
+                sub = torch.from_numpy(sub_np.astype(np.int64)).to(
+                    sub.device)
+            ng_sub = ns_new + nc_new
+        e["sub"], e["ng_sub"] = sub, int(ng_sub)
 
 
 def _unbind_level(opt: C.Options, pend: List[dict]) -> None:

@@ -52,7 +52,6 @@ import torch
 from ..kernels import R_BLOCK
 from ..kernels import fof_sweep as K
 from ..kernels._common import BIG_I32
-from ..utils import telemetry
 from .cells import CellGrid, build_grid, cell_coords, limit_columns
 
 # z-columns (nx * ny) a context may have for each slot (``build_fof_ctx``)
@@ -379,10 +378,9 @@ class SweepFof:
         b2 = float(linking_length) ** 2
         cell, win = c.sweep_windows
         pts = K.pack(c.pos.T)
-        labels, sweeps = _fixpoint(
+        labels, _ = _fixpoint(
             lambda l: K.sweep3d(pts, l.int(), cell, win, b2),
             c.gslots, c.grs, torch.arange(c.ns, device=c.src.device))
-        telemetry.count("fof3d_sweeps", sweeps)
         return _renumber(labels, c, min_size)
 
     def fof6d(self, ell6d: float, groups_orig: torch.Tensor,
@@ -396,8 +394,7 @@ class SweepFof:
         rivs = 1.0 / torch.clamp_min(vscale2_orig[c.src].float(), 1e-30)
         vels = K.pack(self.vel[c.src].float(), rivs)
         inv_b2 = 1.0 / float(ell6d) ** 2
-        labels, sweeps = _fixpoint(
+        labels, _ = _fixpoint(
             lambda l: K.sweep6d(pts, vels, l.int(), cell, win, inv_b2),
             c.gslots, c.grs, torch.arange(c.ns, device=c.src.device))
-        telemetry.count("fof6d_sweeps", sweeps)
         return _renumber(labels, c, min_size)

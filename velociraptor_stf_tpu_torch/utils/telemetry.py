@@ -1,41 +1,50 @@
-"""Fallback / de-batching counters.
+"""Counters of the port's decisions and traffic.
 
-The port's copy of ``velociraptor_stf_tpu/utils/telemetry.py``, kept so that
-the port imports nothing of the JAX package.
+Once the port's copy of ``velociraptor_stf_tpu/utils/telemetry.py``, kept so
+that the port imports nothing of the JAX package.
 
-Silent performance fallbacks (a batched path quietly handing a structure
-to the sequential path, a Pallas kernel latching its XLA fallback) hide
-pathological inputs: a run can lose its whole batching win with nothing
-in the logs.  Every such decision increments a named counter here;
-``snapshot()`` is reported by the bench in verbose mode and can be
-asserted on in tests.
+A path that quietly hands work elsewhere, or traffic that grows with the
+input, can cost a run its speed with nothing in the logs; each such event
+increments a named counter here, read with ``snapshot()``.  The counters
+are process-global; while spans record (``utils/timing.py``) each count
+also lands on the innermost open span, so a profiled run reads them per
+catalog and per stage.  The keys, each with its reader:
 
-The port counts ``fof3d_sweeps`` and ``fof6d_sweeps``
-(``ops/fof_sweep.py``) and ``baryon_pairs``, the (baryon, tagged DM)
-candidate pairs of the association (``models/baryons.py``).  Its mesh
-path (``parallel/``) counts ``coll_bytes::<stage>::<kind>`` and
-``coll_ops::<stage>::<kind>`` (``collectives.py``), the shards' loads
-``mesh_slab_load::<stage>::shard<s>`` and
-``mesh_group_load::<stage>::shard<s>``, the slab FOF's candidate pairs
-``mesh_candidates::<fof3d|fof6d>::shard<s>`` and its cross-slab rounds
-``<fof3d|fof6d>_outer_rounds``, and the catalog's host fetches
-``mesh_full_gathers`` (``utils/transfer.py``).  Keys of the JAX package:
-  subset_batched_structures / subset_batched_particles
-      structures (and their padded particle counts) whose candidate
-      search ran in a vmapped class batch
-  subset_sequential_structures / subset_sequential_particles
-      structures that fell to the per-structure sequential path
-  subset_pair_cap_overflows
-      lanes de-batched because the sparse cross-group pair table
-      exceeded the per-structure cap (models/substructure.py)
-  subset_dense_table_bailouts
-      whole class batches skipped because the union grid exceeded the
-      dense prefix-table budget
-  pallas_fof_compile_fallbacks / pallas_gravity_compile_fallbacks
-      Mosaic compile failures latched to the XLA paths
-  pallas_fof_overflow_fallbacks
-      Pallas field searches abandoned for the XLA edge pipeline because
-      a ghost/subset capacity prepass overflowed
+  subsub_level<L>_structures / _candidates / _found
+      structures searched at recursion level L, candidates before the
+      level's unbind, substructures found (``models/substructure.py``;
+      ``chip_smoke.py`` phase 9, tests/test_torch_subsub.py,
+      test_torch_subcli.py, test_torch_spans.py)
+  subsub_cores_promoted
+      merger cores promoted to substructures (``chip_smoke.py`` phase 9)
+  subset_batched_structures / subset_batched_particles /
+  subset_sequential_structures
+      structures (and padded particles) whose subset search ran in the
+      level's batch, structures searched one by one
+      (tests/test_torch_subset_batch.py, test_torch_subcli.py,
+      ``chip_smoke.py`` phase 9)
+  subset_batches / subset_batch_candidates / subset_batch_pairs
+      the batched subset search's batches, candidate slots and in-reach
+      pairs (tests/test_torch_subset_batch.py, ``chip_smoke.py`` phase 9)
+  baryon_pairs
+      (baryon, tagged DM) candidate pairs of the association
+      (``models/baryons.py``, ``parallel/distributed_baryons.py``;
+      tests/test_torch_baryons.py, ``chip_smoke.py`` phase 8)
+  coll_bytes::<stage>::<kind> / coll_ops::<stage>::<kind>
+      the mesh's moves between shards (``parallel/collectives.py``;
+      tests/test_torch_mesh.py, test_torch_distributed.py,
+      test_torch_collective_audit.py, ``chip_smoke.py`` phase 10)
+  mesh_slab_load::<stage>::shard<s> / mesh_group_load::<stage>::shard<s>
+  / mesh_candidates::<fof3d|fof6d>::shard<s>
+      the shards' loads and the slab FOF's candidate pairs
+      (``parallel/distributed_fof.py``, ``grouppack.py``;
+      ``chip_smoke.py`` phase 10)
+  <fof3d|fof6d>_outer_rounds
+      the slab FOF's cross-slab rounds (tests/test_torch_distributed.py,
+      ``chip_smoke.py`` phase 10)
+  mesh_full_gathers / mesh_full_gathers::<what>
+      whole-array fetches to the host (``utils/transfer.py``;
+      tests/test_torch_collective_audit.py)
 """
 
 from __future__ import annotations
@@ -43,11 +52,14 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict
 
+from . import timing
+
 _COUNTERS: Counter = Counter()
 
 
 def count(key: str, n: int = 1) -> None:
     _COUNTERS[key] += int(n)
+    timing.add_count(key, int(n))
 
 
 def snapshot() -> Dict[str, int]:
