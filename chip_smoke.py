@@ -78,7 +78,9 @@ csrc`` and drives the port on the card, in phases:
    by the per-structure ``search_subset`` on the card: ids and group
    counts exactly equal; every structure searched must go through the
    batched search (``subset_batched_structures``), with its batches and
-   in-reach pairs printed beside the ``subset`` and ``cores`` laps; then
+   in-reach pairs printed beside the ``subset`` and ``cores`` laps; every
+   structure of the batched core search (``search_cores_batch``) is
+   searched again by ``halo_core_search``: core ids and counts equal; then
    three planted hosts with subhalos through find_structures on the card
    and on the CPU: equal ids and hierarchy, at least two substructures;
 10. the mesh path (``velociraptor_stf_tpu_torch/parallel``): find_structures
@@ -1433,6 +1435,41 @@ def batch_against_per_structure(torch, S, checked: list):
     return undo
 
 
+def cores_against_per_structure(torch, S, checked: list):
+    """Wrap ``S.search_cores_batch`` so that every structure it searches
+    is searched again by the per-structure ``S.halo_core_search``: core
+    ids and core counts must be equal.  Appends (structures, rows,
+    differing ids) per call to ``checked``; returns the function that
+    unwraps."""
+    real = S.search_cores_batch
+
+    def checking(opt, entries, level, pair_budget=None):
+        got = real(opt, entries, level, pair_budget)
+        rows = differ = 0
+        for e, (core, nc) in zip(entries, got):
+            k = e["nsub"]
+            want, nc_want = S.halo_core_search(
+                opt, e["ppos"][:k], e["pvel"][:k], e["pmass"][:k],
+                e["valid"][:k], e["sub"], sublevel=level,
+                bounds=e["bounds"])
+            bad = int((want != core).sum())
+            if nc != nc_want or bad:
+                raise AssertionError(
+                    f"batched core search: a structure of {k} rows has "
+                    f"{nc} cores, the per-structure search {nc_want}; "
+                    f"{bad} ids differ")
+            rows += k
+            differ += bad
+        checked.append((len(entries), rows, differ))
+        return got
+
+    S.search_cores_batch = checking
+
+    def undo():
+        S.search_cores_batch = real
+    return undo
+
+
 def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     """Phase 9: the substructure path at full width.  Returns (the
     options, the kernels' launch counts over the last run)."""
@@ -1449,20 +1486,25 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
         shutil.rmtree(tmp, ignore_errors=True)
     first = None
     checked: list = []
+    cores_checked: list = []
     for rep in range(2):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         telemetry.reset()
-        # the warm-up run holds the batched search to the per-structure one
-        undo = batch_against_per_structure(torch, substructure, checked) \
-            if rep == 0 else (lambda: None)
+        # the warm-up run holds the batched searches to the per-structure
+        # ones
+        undo = [batch_against_per_structure(torch, substructure, checked),
+                cores_against_per_structure(torch, substructure,
+                                            cores_checked)] \
+            if rep == 0 else []
         t0 = time.perf_counter()
         try:
             res = find_structures(opt, pos, vel, mass, boxsize=BOXSIZE,
                                   device=dev)
         finally:
-            undo()
+            for u in undo:
+                u()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernels.LAUNCHES)
@@ -1512,6 +1554,17 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
         raise AssertionError(f"substructure path: {nbatched} of {searched} "
                              "structures took the batched subset search, "
                              f"{sum(c[0] for c in checked)} were checked")
+    ncb = tele.get("cores_batched_structures", 0)
+    log(f"phase 9 core search: {ncb} structures batched "
+        f"({tele.get('cores_sequential_structures', 0)} per structure); "
+        f"warm-up run: {sum(c[0] for c in cores_checked)} structures "
+        f"({sum(c[1] for c in cores_checked)} rows) in "
+        f"{len(cores_checked)} batched calls equal to the per-structure "
+        "core search")
+    if sum(c[0] for c in cores_checked) != \
+            tele.get("cores_batched_structures", 0):
+        raise AssertionError("substructure path: the batched core search "
+                             "was not checked on every structure")
     nsub = int((res.parent[1:] > 0).sum())
     log(f"phase 9 hierarchy: {res.ngroups - nsub} field structures, {nsub} "
         f"substructures, deepest level {deepest}; "
@@ -2339,6 +2392,10 @@ def subsub_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
         (fof, "attach_rounds", "attach_rounds"),
         (S, "merge_linked_groups", "merge_linked_groups"),
         (S, "significance_filter", "significance_filter"),
+        (S, "search_level_cores", "search_level_cores"),
+        (S, "search_cores_batch", "search_cores_batch"),
+        (S, "_cores_batch", "_cores_batch"),
+        (S, "_phase_tensor_growth_batch", "_phase_tensor_growth_batch"),
         (S, "_cores_and_merges", "_cores_and_merges"),
         (S, "halo_core_search", "halo_core_search"),
         (S, "_phase_tensor_growth", "_phase_tensor_growth"),

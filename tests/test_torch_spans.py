@@ -2,7 +2,8 @@
 they nest with one catalog id, record only under a ``torch.profiler``
 session and then on the profiler's own host clock, carry the counters
 counted inside them, and ``find_structures`` records its stages, the
-recursion's laps and one span per structure of the merger-core search.
+recursion's laps, the merger-core search's batches and one span per
+structure searched.
 
 This file imports no jax: on a card it runs with
 
@@ -172,10 +173,22 @@ def test_find_structures_records_its_tree(catalogs):
         if r["name"] == "substructure.cores.structure":
             assert by[r["parent"]]["name"] == "substructure.cores"
             assert set(r["attrs"]) >= {"g", "nsub", "level"}
-        if r["name"] in ("cores.fof", "cores.growth", "cores.merge"):
+        # the level's core search runs batched: one cores.fof and at most
+        # one cores.growth a batch; the host merges stay per structure
+        if r["name"] == "cores.batch":
+            assert by[r["parent"]]["name"] == "substructure.cores"
+            assert set(r["attrs"]) >= {"structures", "rows", "loops",
+                                       "sweeps"}
+        if r["name"] in ("cores.fof", "cores.growth"):
+            assert by[r["parent"]]["name"] == "cores.batch"
+        if r["name"] == "cores.merge":
             assert by[r["parent"]]["name"] == \
                 "substructure.cores.structure"
-    assert names["cores.fof"] == names["substructure.cores.structure"]
+    assert names["cores.fof"] == names["cores.batch"] >= 1
+    assert names["cores.growth"] <= names["cores.batch"]
+    assert sum(r["attrs"]["structures"] for r in recs
+               if r["name"] == "cores.batch") == \
+        names["substructure.cores.structure"]
     # one structure span per structure searched at a core-search level
     searched = 0
     for r in recs:

@@ -5,7 +5,8 @@ substructure.py: the pair criteria, ``subset_predicate``,
 (``_batchable_subset``, ``_subset_preds``, ``_search_subset_batch``),
 ``merge_linked_groups``, ``attach_expand``, the three host merges, the
 padded structure context, ``structure_outliers``, ``search_sub_sub``,
-``Pred6DCore``, ``halo_core_search`` and ``_phase_tensor_growth``).
+``Pred6DCore``, ``halo_core_search`` and ``_phase_tensor_growth``), and
+the batched merger-core search, which the reference does not have.
 
 * ``search_subset`` (reference SearchSubset, search.cxx:910-1816): a pair
   links when both particles are outliers (ell >= threshold), lie within
@@ -25,12 +26,22 @@ padded structure context, ``structure_outliers``, ``search_sub_sub``,
   reference's pow2 lane classes, pair cap and fallbacks served XLA's
   static shapes and are not carried over: a batchable structure always
   takes the batch, and a failure raises.
+* ``search_cores_batch``: ``halo_core_search`` (HaloCoreGrowth, :1817)
+  over a level's structures at once, which ``search_level_cores`` takes
+  whenever the linking length only shrinks over the loops (every shipped
+  config): one cell sort keyed by (structure, cell), each structure's
+  lengths, sizes and cores on the device, one label fixed point a loop
+  over the union of the live structures' links, then the phase-tensor
+  growth with cores keyed (structure, core).  Its ids are the
+  per-structure search's: the two share the velocity scale's segment
+  sums, the link's tensor divisions and the growth's elementwise
+  Cholesky factor and distance, whose rounding depends on no batch.
 * ``search_sub_sub`` (SearchSubSub, :2480-2946): the velocity density once
   over the particles of structures of at least MINSUBSIZE members, then per
   level: each structure's padded context (``_prep_class``), its background
-  grid and outlier values, the subset search, the merger-core search
-  (HaloCoreGrowth, :1817), one unbind over every candidate of the level,
-  and the splice of the new ids with their parents.
+  grid and outlier values, the subset search, the merger-core search, one
+  unbind over every candidate of the level, and the splice of the new ids
+  with their parents.
 
 The padding is part of the result.  A structure of nsub members is padded
 to npad = next_pow2(nsub) >= 1024 rows, the extra rows zero-mass points on
@@ -50,8 +61,8 @@ bounds.  The reference's environment switches are not ported.
 With a mesh (``parallel/``), the density is sharded as x-slabs once the
 active set reaches ``distributed_localfield.DIST_DENSITY_MIN`` particles
 (approximative mode only), and each level's structures are dealt whole to
-the shards, each running one subset search over its structures and the
-core searches (``parallel/distributed_substructure.py``).
+the shards, each running one subset search and one core search over its
+structures (``parallel/distributed_substructure.py``).
 """
 
 from __future__ import annotations
@@ -299,15 +310,24 @@ class Pred6DBackground:
 @dataclasses.dataclass(frozen=True)
 class Pred6DCore:
     """FOF6d between eligible (untagged) particles (reference FOF6d with
-    the FOFcheckbg gate, search.cxx:1596-1600)."""
+    the FOFcheckbg gate, search.cxx:1596-1600).  ``b2`` and ``v2``: floats,
+    or float32 tensors, 0-d or one per pair (``_core_link``)."""
 
     b2: float
     v2: float
 
     def __call__(self, d2, own, nbr):
-        dv2 = seg.sq3(own["vel"] - nbr["vel"])
-        ok = d2 / self.b2 + dv2 / self.v2 <= 1.0
+        ok = _core_link(d2, seg.sq3(own["vel"] - nbr["vel"]), self.b2,
+                        self.v2)
         return ok & (own["elig"] > 0) & (nbr["elig"] > 0)
+
+
+def _core_link(d2, dv2, b2, v2):
+    """The core search's 6D link, dx^2/b2 + dv^2/v2 <= 1.  Both searches
+    give ``b2`` and ``v2`` as device tensors: a CUDA division by a host
+    scalar multiplies by its reciprocal, a division by a tensor divides,
+    so the two would round apart."""
+    return d2 / b2 + dv2 / v2 <= 1.0
 
 
 def subset_predicate(opt: C.Options, ellx2: float, vratio: float,
@@ -685,19 +705,32 @@ def search_subset_batch(opt: C.Options, entries: List[dict],
     fields_s = {k: v[cells.order] for k, v in fields.items()}
     totals = fetch_small(cells.candidates())
     telemetry.count("subset_batch_candidates", int(totals.sum()))
-    budget = pair_budget or ((1 << 24) if dev.type == "cuda" else (1 << 22))
     preds = _subset_preds(opt)
-    k0 = nbatch = 0
-    while k0 < len(entries):
-        k1, tot = k0 + 1, int(totals[k0])
-        while k1 < len(entries) and tot + int(totals[k1]) <= budget:
-            tot += int(totals[k1])
-            k1 += 1
+    runs = _budget_runs(totals, pair_budget or _pair_budget(dev))
+    for k0, k1 in runs:
         _subset_batch(opt, entries, cells, fields_s, ell, k0, k1, preds,
                       reach)
-        nbatch += 1
+    telemetry.count("subset_batches", len(runs))
+
+
+def _pair_budget(dev: torch.device) -> int:
+    """Candidate slots a batch of whole structures may hold:
+    ``cell_pairs``' budget, 2^24 on a card, 2^22 on the host."""
+    return (1 << 24) if dev.type == "cuda" else (1 << 22)
+
+
+def _budget_runs(totals: np.ndarray, budget: int) -> List[Tuple[int, int]]:
+    """Consecutive structures [k0, k1) whose candidate slots (``totals``)
+    fit ``budget`` together; a structure over it alone."""
+    runs, k0 = [], 0
+    while k0 < len(totals):
+        k1, tot = k0 + 1, int(totals[k0])
+        while k1 < len(totals) and tot + int(totals[k1]) <= budget:
+            tot += int(totals[k1])
+            k1 += 1
+        runs.append((k0, k1))
         k0 = k1
-    telemetry.count("subset_batches", nbatch)
+    return runs
 
 
 def _subset_batch(opt: C.Options, entries: List[dict],
@@ -1039,6 +1072,47 @@ def structure_outliers(opt: C.Options, pos, vel, mass, valid, dens=None):
 # Merger cores (reference search.cxx:1530-1816, HaloCoreGrowth:1817)
 # ---------------------------------------------------------------------------
 
+# (row, core slot, 6 x 6) elements a growth step gathers at once
+_GROW_ELEMS = 1 << 22
+
+
+def _core_ellx(opt: C.Options, sublevel: int) -> float:
+    """The core search's loop-0 linking length at a recursion level."""
+    return opt.ellxscale * opt.ellphys * opt.ellhalophysfac * \
+        opt.halocorexfac * opt.halocorexfac ** (sublevel - 1)
+
+
+def _row_sums(values: torch.Tensor, key: torch.Tensor, nkeys: int
+              ) -> torch.Tensor:
+    """(nkeys, m) sums of the (n, m) ``values`` over the rows of each
+    ``key`` (non-decreasing): one reduction that adds each (key, column)
+    in row order, on a card as on the host, so a sum depends on its own
+    rows alone; the lengths counted with integer adds, no host sync."""
+    lengths = torch.zeros(nkeys, dtype=torch.int64,
+                          device=key.device).index_add_(
+        0, key, torch.ones_like(key))
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def _core_sigv2(vel, mass, valid, sid, nseg: int) -> torch.Tensor:
+    """(nseg,) float64 velocity dispersion (1D average, reference
+    HaloSigmaV) of each structure's valid rows, float32 ``_row_sums`` over
+    its consecutive rows (``sid`` non-decreasing): the same whether the
+    structure is searched alone or in a batch."""
+    w = torch.where(valid, mass, 0.0)
+    s = _row_sums(torch.cat([w[:, None], vel * w[:, None]], 1), sid, nseg)
+    mtot = torch.clamp_min(s[:, 0], 1e-30)
+    vmean = s[:, 1:] / mtot[:, None]
+    s2 = _row_sums((seg.sq3(vel - vmean[sid]) * w)[:, None], sid, nseg)
+    return (s2[:, 0] / mtot / 3.0).double()
+
+
+def _f32(x: float, dev) -> torch.Tensor:
+    """``x`` as a 0-d float32 tensor, filled on ``dev``."""
+    return torch.full((), x, dtype=torch.float32, device=dev)
+
+
 def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
                      sublevel: int = 1, bounds=None
                      ) -> Tuple[torch.Tensor, int]:
@@ -1046,29 +1120,28 @@ def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
     core growth.  ``pfof_sub``: substructure ids (those particles are
     left out).  Returns (int64 core id per particle, ncores): core 1 is
     the main core, 2..ncores merger remnants to promote (reference
-    iHaloCoreSearch = 2)."""
+    iHaloCoreSearch = 2).  The velocity scale stays on the device in
+    float64 and the criterion takes it as a float32 tensor, as in
+    ``search_cores_batch``, which gives the same ids."""
     n = pos.shape[0]
+    dev = pos.device
     pfof_sub = pfof_sub.long()
     nvalid = int(valid.sum())
-    w = torch.where(valid, mass, 0.0)
-    mtot = torch.clamp_min(w.sum(), 1e-30)
-    vmean = (vel * w[:, None]).sum(0) / mtot
-    sigv2 = float((seg.sq3(vel - vmean) * w).sum() / mtot / 3.0)
-
-    ellx = opt.ellxscale * opt.ellphys * opt.ellhalophysfac * \
-        opt.halocorexfac * opt.halocorexfac ** (sublevel - 1)
+    ellv2 = _core_sigv2(vel, mass, valid,
+                        torch.zeros(n, dtype=torch.int64, device=dev),
+                        1)[0] * opt.halocorevfac ** 2
+    ellx = _core_ellx(opt, sublevel)
     ellx2 = ellx * ellx
-    ellv2 = sigv2 * opt.halocorevfac ** 2
     minsize = max(int(nvalid * opt.halocorenfac *
                       opt.halocorenumfaciter ** (sublevel - 1)), opt.MinSize)
 
     with span("cores.fof"):
-        core = torch.zeros(n, dtype=torch.int64, device=pos.device)
+        core = torch.zeros(n, dtype=torch.int64, device=dev)
         ncores = 0
-        # the linking length only shrinks (halocorexfaciter <= 1): the
-        # loop-0 table holds every later loop's pairs
+        # the linking length only shrinks: the loop-0 table holds every
+        # later loop's pairs
         edges = None
-        if opt.halocorexfaciter <= 1.0:
+        if _batchable_cores(opt):
             edges = fof.build_edges(pos, math.sqrt(ellx2),
                                     fields={"vel": vel},
                                     predicate=fof.Pred3D(float(ellx2)),
@@ -1076,7 +1149,8 @@ def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
         untagged = valid & (pfof_sub == 0)
         for loop in range(max(1, opt.halocorenumloops)):
             elig = untagged if loop == 0 else untagged & (core == 1)
-            pred = Pred6DCore(float(ellx2), float(max(ellv2, 1e-30)))
+            pred = Pred6DCore(_f32(ellx2, dev),
+                              torch.clamp_min(ellv2, 1e-30).float())
             if edges is not None:
                 fields_s = dict(edges.fields_s)
                 fields_s["elig"] = elig.to(torch.int32)[edges.order]
@@ -1109,13 +1183,13 @@ def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
                     core = torch.where(pfc > 1, pfc - 1 + ncores, core)
                     ncores += ngc - 1
             ellx2 *= opt.halocorexfaciter ** 2
-            ellv2 *= opt.halocorevfaciter ** 2
+            ellv2 = ellv2 * opt.halocorevfaciter ** 2
             minsize = max(int(minsize * opt.halocorenumfaciter),
                           opt.MinSize)
             if minsize * opt.halocorenumfaciter >= nvalid:
                 break
     if ncores < 2:
-        return torch.zeros(n, dtype=torch.int64, device=pos.device), 0
+        return torch.zeros(n, dtype=torch.int64, device=dev), 0
     if opt.iHaloCoreSearch >= 2 and opt.iPhaseCoreGrowth:
         with span("cores.growth"):
             core = _phase_tensor_growth(pos, vel, mass, valid, pfof_sub,
@@ -1127,32 +1201,268 @@ def _phase_tensor_growth(pos, vel, mass, valid, pfof_sub, core,
                          ncores: int, iters: int = 4) -> torch.Tensor:
     """Untagged halo particles join the core of least Mahalanobis phase
     distance, the cores' phase means and dispersion tensors recomputed
-    each of ``iters`` steps (sorted segment sums: no float atomics)."""
-    nc1 = ncores + 1
+    each of ``iters`` steps (``_core_moments``, ``_phase_distance``: the
+    arithmetic of ``_phase_tensor_growth_batch``)."""
     phase = torch.cat([pos, vel], 1)
     assignable = valid & (pfof_sub == 0)
-    eye = torch.eye(6, dtype=pos.dtype, device=pos.device)
     core = core.long()
     for _ in range(iters):
         w = torch.where((core > 0) & valid, mass, 0.0)
         order = torch.argsort(core, stable=True)
-        cs, ws, ps = core[order], w[order], phase[order]
-        msum = torch.clamp_min(seg.segment_sum(ws, cs, nc1, presorted=True),
-                               1e-30)
-        mu = seg.segment_sum(ps * ws[:, None], cs, nc1,
-                             presorted=True) / msum[:, None]
-        d = ps - mu[cs]
-        outer = (d[:, :, None] * d[:, None, :] * ws[:, None, None])
-        cov = seg.segment_sum(outer.reshape(-1, 36), cs, nc1,
-                              presorted=True).view(nc1, 6, 6) / \
-            msum[:, None, None]
-        tr = torch.diagonal(cov, dim1=1, dim2=2).sum(-1) / 6.0
-        cov = cov + (1e-6 * torch.clamp_min(tr, 1e-20))[:, None, None] * eye
-        icov = torch.linalg.inv(cov)
-        dd = phase[:, None, :] - mu[None, 1:, :]
-        md = torch.einsum("nci,cij,ncj->nc", dd, icov[1:], dd)
+        mu, chol = _core_moments(core[order], w[order], phase[order],
+                                 ncores + 1)
+        md = _phase_distance(phase[:, None, :] - mu[None, 1:, :], chol[1:])
         best = torch.argmin(md, 1) + 1
         core = torch.where(assignable, best, core)
+    return core
+
+
+def _core_moments(key, w, phase, nkeys: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each core's mass-weighted phase mean (nkeys, 6) and the lower
+    Cholesky factor (nkeys, 6, 6) of its dispersion tensor plus 1e-6 of
+    its mean diagonal; rows sorted by core (``key`` non-decreasing),
+    ``_row_sums``: no float atomics."""
+    s = _row_sums(torch.cat([w[:, None], phase * w[:, None]], 1), key,
+                  nkeys)
+    msum = torch.clamp_min(s[:, 0], 1e-30)
+    mu = s[:, 1:] / msum[:, None]
+    d = phase - mu[key]
+    outer = d[:, :, None] * d[:, None, :] * w[:, None, None]
+    cov = _row_sums(outer.reshape(-1, 36), key, nkeys).view(nkeys, 6, 6) / \
+        msum[:, None, None]
+    diag = torch.diagonal(cov, dim1=1, dim2=2)
+    tr = diag[:, 0]
+    for i in range(1, 6):
+        tr = tr + diag[:, i]
+    eye = torch.eye(6, dtype=cov.dtype, device=cov.device)
+    cov = cov + (1e-6 * torch.clamp_min(tr / 6.0, 1e-20))[:, None, None] * eye
+    return mu, _cholesky6(cov)
+
+
+def _cholesky6(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of (..., 6, 6) symmetric positive definite
+    matrices in elementwise operations: l_ij = (a_ij - sum_k<j l_ik l_jk)
+    / l_jj, the k in order.  An entry depends on its own matrix alone, in
+    any batch: a library factorisation may change its algorithm with the
+    batch's size."""
+    cols = []
+    for j in range(6):
+        s = a[..., j:, j]
+        for k in range(j):
+            s = s - cols[k][..., j - k:] * cols[k][..., j - k, None]
+        d = torch.sqrt(s[..., :1])
+        cols.append(torch.cat([d, s[..., 1:] / d], -1))
+    out = torch.zeros_like(a)
+    for j in range(6):
+        out[..., j:, j] = cols[j]
+    return out
+
+
+def _phase_distance(dd: torch.Tensor, chol: torch.Tensor) -> torch.Tensor:
+    """dd^T cov^-1 dd over the last axis of the (..., 6) differences, with
+    ``chol`` (..., 6, 6) the factor of cov: |y|^2 for L y = dd, solved and
+    summed in one order, elementwise, so an element does not depend on
+    the shapes around it."""
+    y = []
+    for k in range(6):
+        s = dd[..., k]
+        for j in range(k):
+            s = s - chol[..., k, j] * y[j]
+        y.append(s / chol[..., k, k])
+    md = y[0] * y[0]
+    for k in range(1, 6):
+        md = md + y[k] * y[k]
+    return md
+
+
+def _batchable_cores(opt: C.Options) -> bool:
+    """Whether ``search_cores_batch`` serves the options: the linking
+    length only shrinks over the loops (``halocorexfaciter`` <= 1), so one
+    loop-0 pair table holds every loop's pairs, as in
+    ``halo_core_search``."""
+    return opt.halocorexfaciter <= 1.0
+
+
+def search_cores_batch(opt: C.Options, entries: List[dict], level: int,
+                       pair_budget: Optional[int] = None
+                       ) -> List[Tuple[torch.Tensor, int]]:
+    """``halo_core_search`` of many structures at once: per entry
+    (``search_sub_sub``'s, ``sub`` set by the subset search) its (int64
+    core ids in its row order, ncores), those of the per-structure
+    search.  Needs ``_batchable_cores(opt)``.
+
+    One cell sort of every structure's rows keyed by (structure, cell),
+    each on its own grid over its padded bounds at the loop-0 length
+    (``fof.segmented_cells``), as ``halo_core_search`` grids it alone;
+    then batches of whole structures whose candidate slots fit
+    ``pair_budget`` (default ``_pair_budget``), one fetch of the
+    per-structure totals setting them.  Each batch runs ``_cores_batch``
+    in a ``cores.batch`` span."""
+    if not entries:
+        return []
+    if not _batchable_cores(opt):
+        raise ValueError(f"halocorexfaciter {opt.halocorexfaciter} > 1 "
+                         "takes the per-structure search")
+    dev = entries[0]["ppos"].device
+    nsub = [int(e["nsub"]) for e in entries]
+
+    def rows(key):
+        return torch.cat([e[key][:e["nsub"]] for e in entries])
+
+    pos, vel, mass, valid = (rows(k) for k in
+                             ("ppos", "pvel", "pmass", "valid"))
+    sub = rows("sub").long()
+    ellx = _core_ellx(opt, level)
+    ellx2 = ellx * ellx
+    cells = fof.segmented_cells(pos, nsub, [e["bounds"] for e in entries],
+                                math.sqrt(ellx2))
+    sigv2 = _core_sigv2(vel, mass, valid, cells.seg, len(entries))
+    totals = fetch_small(cells.candidates())
+    out = []
+    for k0, k1 in _budget_runs(totals, pair_budget or _pair_budget(dev)):
+        r0, r1 = int(cells.starts[k0]), int(cells.starts[k1])
+        with span("cores.batch", structures=k1 - k0, rows=r1 - r0) as b:
+            core, ncores, loops, sweeps = _cores_batch(
+                opt, cells, pos[r0:r1], vel[r0:r1], mass[r0:r1],
+                valid[r0:r1], sub[r0:r1], sigv2[k0:k1], k0, k1, ellx2,
+                level)
+            b.set(loops=loops, sweeps=sweeps)
+        for k in range(k0, k1):
+            a = int(cells.starts[k]) - r0
+            out.append((core[a:a + nsub[k]], int(ncores[k - k0])))
+    return out
+
+
+def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
+                 valid, sub, sigv2, k0: int, k1: int, ellx2: float,
+                 level: int):
+    """The core search of structures k0..k1-1 (``pos`` ... ``sub``: their
+    rows), each structure's lengths, ``minsize``, cores and a live flag
+    on the device.  The loop-0 pairs once; each loop the 6D links between
+    the live structures' eligible rows, one label fixed point over their
+    union, one renumbering by size per structure (ties by the row within
+    the structure, each its own ``minsize``), the core bookkeeping, and
+    one fetch of the live count.  A structure stops where
+    ``halo_core_search`` breaks (no core found, or ``minsize`` about to
+    reach its rows) and keeps its cores.  Then one fetch of the core
+    counts and the growth of the structures with two or more.  Returns
+    (core ids in row order, host ncores, loops, fixed-point sweeps)."""
+    dev = pos.device
+    nseg = k1 - k0
+    r0, r1 = int(cells.starts[k0]), int(cells.starts[k1])
+    n = r1 - r0
+    sid = cells.seg[r0:r1] - k0                # structure of each row
+    order = cells.order[r0:r1] - r0            # sorted -> original row
+    ones = torch.ones_like(sid)
+    counts = torch.zeros(nseg, dtype=torch.int64,
+                         device=dev).index_add_(0, sid, ones)
+    src = order - (torch.cumsum(counts, 0) - counts)[sid]
+    loops = sweeps = 0
+    with span("cores.fof"):
+        erow, ecol, d2 = cells.pairs(r0, r1, math.sqrt(ellx2), b2=ellx2)
+        vel_s = vel[order]
+        dv2 = seg.sq3(vel_s[erow] - vel_s[ecol])
+        eseg = sid[erow]
+        untagged = (valid & (sub == 0))[order]
+        nvalid = torch.zeros(nseg, dtype=torch.int64,
+                             device=dev).index_add_(0, sid, valid.long())
+        minsize = torch.clamp_min(
+            (nvalid.double() * opt.halocorenfac *
+             opt.halocorenumfaciter ** (level - 1)).long(), opt.MinSize)
+        ellv2 = sigv2 * opt.halocorevfac ** 2
+        core = torch.zeros(n, dtype=torch.int64, device=dev)   # sorted rows
+        ncores = torch.zeros(nseg, dtype=torch.int64, device=dev)
+        live = torch.ones(nseg, dtype=torch.bool, device=dev)
+        for loop in range(max(1, opt.halocorenumloops)):
+            loops += 1
+            elig = untagged & live[sid]
+            if loop > 0:
+                elig = elig & (core == 1)
+            v2 = torch.clamp_min(ellv2, 1e-30).float()
+            ok = _core_link(d2, dv2, _f32(ellx2, dev), v2[eseg]) & \
+                elig[erow] & elig[ecol]
+            # a link that fails is a self-link: no compaction, no sync
+            labels, nsw = fof.fof_labels_from_edges(
+                erow, torch.where(ok, ecol, erow), n, undirected=True,
+                with_sweeps=True)
+            sweeps += nsw
+            sizes = torch.zeros(n, dtype=torch.int64,
+                                device=dev).index_add_(0, labels, ones)
+            min_src = torch.full((n,), BIG_I32, dtype=torch.int64,
+                                 device=dev).scatter_reduce_(
+                0, labels, src, "amin")
+            _, local, ngc = seg.renumber_segments(
+                sid, sizes, min_src,
+                (sizes >= torch.clamp_min(minsize, 1)[sid]) & live[sid],
+                nseg)
+            pfc = local[labels]
+            upd = live & (ngc > 0)
+            if loop == 0:
+                new, nc_new = pfc, ngc
+            else:
+                # the refined main core replaces core 1; extra groups
+                # append
+                new = torch.where((core == 1) & (pfc == 0), 0, core)
+                new = torch.where(pfc == 1, 1, new)
+                new = torch.where(pfc > 1, pfc - 1 + ncores[sid], new)
+                nc_new = ncores + torch.clamp_min(ngc - 1, 0)
+            core = torch.where(upd[sid], new, core)
+            ncores = torch.where(upd, nc_new, ncores)
+            ellx2 *= opt.halocorexfaciter ** 2
+            ellv2 = ellv2 * opt.halocorevfaciter ** 2
+            shrunk = torch.clamp_min(
+                (minsize.double() * opt.halocorenumfaciter).long(),
+                opt.MinSize)
+            minsize = torch.where(upd, shrunk, minsize)
+            live = upd & (shrunk.double() * opt.halocorenumfaciter <
+                          nvalid.double())
+            if not bool(live.any()):
+                break
+        ncores = torch.where(ncores >= 2, ncores, 0)
+        nc_h = fetch_small(ncores)
+        core = torch.where(ncores[sid] > 0, _scatter_back(core, order), 0)
+    if opt.iHaloCoreSearch >= 2 and opt.iPhaseCoreGrowth and nc_h.any():
+        with span("cores.growth"):
+            core = _phase_tensor_growth_batch(
+                pos, vel, mass, valid, sub, core, sid, ncores,
+                int(nc_h.max()), int((nc_h + 1).sum()))
+    return core, nc_h, loops, sweeps
+
+
+def _phase_tensor_growth_batch(pos, vel, mass, valid, pfof_sub, core, sid,
+                               ncores, ncmax: int, nkeys: int,
+                               iters: int = 4) -> torch.Tensor:
+    """``_phase_tensor_growth`` of many structures at once: rows
+    consecutive by structure (``sid``), ``ncores`` per structure (0 where
+    it takes no growth; its rows stay 0).  Cores keyed (structure, core),
+    one stable sort and one set of segment sums a step, each row's
+    distance to its own structure's cores only (padded to ``ncmax`` at
+    +inf), the lowest core id on a tie."""
+    dev = pos.device
+    n = pos.shape[0]
+    phase = torch.cat([pos, vel], 1)
+    nc_row = ncores[sid]
+    assignable = valid & (pfof_sub == 0) & (nc_row > 0)
+    base = (torch.cumsum(ncores + 1, 0) - (ncores + 1))[sid]
+    cid = torch.arange(1, ncmax + 1, device=dev)
+    pad = cid[None, :] > nc_row[:, None]
+    slots = torch.where(pad, base[:, None], base[:, None] + cid[None, :])
+    chunk = max(1, _GROW_ELEMS // (ncmax * 36))
+    core = core.long()
+    for _ in range(iters):
+        w = torch.where((core > 0) & valid, mass, 0.0)
+        key = base + core
+        order = torch.argsort(key, stable=True)
+        mu, chol = _core_moments(key[order], w[order], phase[order], nkeys)
+        best = []
+        for a in range(0, n, chunk):
+            sl = slots[a:a + chunk]
+            md = _phase_distance(phase[a:a + chunk, None, :] - mu[sl],
+                                 chol[sl])
+            best.append(torch.argmin(
+                torch.where(pad[a:a + chunk], math.inf, md), 1) + 1)
+        core = torch.where(assignable, torch.cat(best), core)
     return core
 
 
@@ -1320,8 +1630,7 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
                 with lap("subset"):
                     search_level_subsets(opt, prep)
                 with lap("cores"):
-                    for e in prep:
-                        _cores_and_merges(opt, e, level, cores_on)
+                    search_level_cores(opt, prep, level, cores_on)
             with lap("unbind"):
                 pend = [e for e in prep if e["ng_sub"] > 0]
                 telemetry.count(f"subsub_level{level}_candidates",
@@ -1406,11 +1715,34 @@ def _outliers_level(opt: C.Options, prep: List[dict]) -> None:
             e["ell"] = ell[j]
 
 
+def search_level_cores(opt: C.Options, entries: List[dict], level: int,
+                       cores_on: bool) -> None:
+    """The merger-core lap of a level's structures (``search_sub_sub``'s
+    entries, ``sub`` set by the subset search): the core search of them
+    all in ``search_cores_batch`` whenever ``_batchable_cores`` holds,
+    else ``halo_core_search`` structure by structure, then each
+    structure's promotion and host merges (``_cores_and_merges``).
+    Counts ``cores_batched_structures`` and
+    ``cores_sequential_structures`` in ``utils/telemetry``."""
+    found: List[Optional[Tuple[torch.Tensor, int]]] = [None] * len(entries)
+    if entries and cores_on and level <= opt.maxnlevelcoresearch:
+        if _batchable_cores(opt):
+            found = search_cores_batch(opt, entries, level)
+            telemetry.count("cores_batched_structures", len(entries))
+        else:
+            telemetry.count("cores_sequential_structures", len(entries))
+    for e, f in zip(entries, found):
+        _cores_and_merges(opt, e, level, cores_on, f)
+
+
 def _cores_and_merges(opt: C.Options, e: dict, level: int,
-                      cores_on: bool) -> None:
-    """The merger-core search of one structure (cores beyond the main one
-    become substructures after its subset groups) and the phase merges
-    (``coresubmergemindist`` > 0) on the host."""
+                      cores_on: bool,
+                      found: Optional[Tuple[torch.Tensor, int]] = None
+                      ) -> None:
+    """The merger-core search of one structure, or its result ``found``
+    (core ids, ncores) from ``search_cores_batch``: cores beyond the main
+    one become substructures after its subset groups; then the phase
+    merges (``coresubmergemindist`` > 0) on the host."""
     with span("substructure.cores.structure", g=e.get("g"),
               nsub=e["nsub"], level=level):
         nsub, ng_sub, sub = e["nsub"], e["ng_sub"], e["sub"]
@@ -1422,9 +1754,9 @@ def _cores_and_merges(opt: C.Options, e: dict, level: int,
             return tuple(a.cpu().numpy() for a in (ppos, pvel, pmass))
 
         if cores_on and level <= opt.maxnlevelcoresearch:
-            core, ncores = halo_core_search(
-                opt, ppos, pvel, pmass, e["valid"][:nsub], sub,
-                sublevel=level, bounds=e["bounds"])
+            core, ncores = found if found is not None else \
+                halo_core_search(opt, ppos, pvel, pmass, e["valid"][:nsub],
+                                 sub, sublevel=level, bounds=e["bounds"])
             if ncores >= 2:
                 extra = (core > 1) & (sub == 0)
                 sub = torch.where(extra, core - 1 + ng_sub, sub)

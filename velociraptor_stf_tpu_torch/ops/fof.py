@@ -267,13 +267,15 @@ class SegmentedCells:
         ends = torch.from_numpy(self.starts).to(cum.device)
         return cum[ends[1:]] - cum[ends[:-1]]
 
-    def pairs(self, r0: int, r1: int, reach: float
+    def pairs(self, r0: int, r1: int, reach: float,
+              b2: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(erow, ecol, d2): each pair of the sorted rows [r0, r1) within
         ``reach`` once (column after row, as ``build_edges``' each-pair-
         once form), indices relative to r0, open-boundary separations.
-        [r0, r1) must hold whole segments."""
-        pred = Pred3D(reach * reach)
+        ``b2``: the squared reach as ``Pred3D`` takes it (default
+        reach * reach).  [r0, r1) must hold whole segments."""
+        pred = Pred3D(reach * reach if b2 is None else b2)
         rows, cols, d2s = [], [], []
         for row, col in cell_pairs(self.cell[r0:r1], self.win):
             row = row + r0
@@ -328,18 +330,20 @@ def refine_edge_mask(pos_s: torch.Tensor, fields_s: Fields,
 # ---------------------------------------------------------------------------
 
 def fof_labels_from_edges(erow: torch.Tensor, ecol: torch.Tensor, n: int,
-                          undirected: bool = False) -> torch.Tensor:
+                          undirected: bool = False,
+                          with_sweeps: bool = False):
     """(n,) int64 label of each particle's component over the edge list:
     the lowest index of the component.  The fixed point is that of the
     sweep path (sweep, hook, pointer jumps, jump-validated exit);
-    ``undirected`` lists are swept both ways."""
+    ``undirected`` lists are swept both ways.  ``with_sweeps``: also
+    return the sweeps it took (one host sync each)."""
     if undirected:
         erow, ecol = torch.cat([erow, ecol]), torch.cat([ecol, erow])
     none = torch.zeros(0, dtype=torch.int64, device=erow.device)
-    labels, _ = _fixpoint(
+    labels, sweeps = _fixpoint(
         lambda l: l.scatter_reduce(0, erow, l[ecol], "amin"), none, none,
         torch.arange(n, device=erow.device))
-    return labels
+    return (labels, sweeps) if with_sweeps else labels
 
 
 def renumber_by_size(labels: torch.Tensor, min_size: int,

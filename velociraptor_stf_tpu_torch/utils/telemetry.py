@@ -26,6 +26,10 @@ catalog and per stage.  The keys, each with its reader:
   subset_batches / subset_batch_candidates / subset_batch_pairs
       the batched subset search's batches, candidate slots and in-reach
       pairs (tests/test_torch_subset_batch.py, ``chip_smoke.py`` phase 9)
+  cores_batched_structures / cores_sequential_structures
+      structures whose merger cores were searched in the level's batch,
+      or one by one (tests/test_torch_cores_batch.py, ``chip_smoke.py``
+      phase 9)
   baryon_pairs
       (baryon, tagged DM) candidate pairs of the association
       (``models/baryons.py``, ``parallel/distributed_baryons.py``;
