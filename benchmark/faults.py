@@ -1,8 +1,8 @@
 """Faults planted in the program, to show that the comparison catches
 them: a stage that returns its input unchanged (the recursion, every
-unbind, the baryon association), half of the input left out, and an
-answer altered where it is produced.  (A cell on one chip has no
-exchange between chips to leave out.)
+unbind, the baryon association), half of the input left out, an answer
+altered where it is produced, and, in a cell on several cards, the
+exchange between the cards left out.
 
 A patch fault replaces a function of the program through ``setattr``
 (pytest's ``monkeypatch.setattr``, or the plain one for a process that
@@ -58,15 +58,29 @@ def unchanged_baryons(set_attr) -> None:
     set_attr(baryons, "search_baryons", none)
 
 
+def exchange_left_out(set_attr) -> None:
+    """Every exchange between a mesh's shards (``collectives.ppermute``:
+    the slab search's boundary particles, the density's ghosts) delivers
+    zeros of the payload's shape in place of the payload."""
+    from velociraptor_stf_tpu_torch.parallel import collectives
+
+    real = collectives.ppermute
+
+    def zeros(mesh, xs, perm):
+        return real(mesh, [torch.zeros_like(x) for x in xs], perm)
+
+    set_attr(collectives, "ppermute", zeros)
+
+
 PATCHES = {f.__name__: f for f in (unchanged_substructure, unbind_skipped,
-                                   unchanged_baryons)}
+                                   unchanged_baryons, exchange_left_out)}
 
 
 def half_left_out(catalog):
     """Every other particle left out of the search; the catalog's ids
     spread back over the whole snapshot."""
 
-    def run(opt, hs, device):
+    def run(opt, hs, device, mesh=None):
         half = copy.copy(hs)
         a = dict(hs.arrays)
         n = a["pos"].shape[0]
@@ -77,7 +91,7 @@ def half_left_out(catalog):
         if a["extras"]:
             a["extras"] = {k: v[keep] for k, v in a["extras"].items()}
         half.arrays = a
-        res = catalog(opt, half, device)
+        res = catalog(opt, half, device, mesh)
         pfof = np.zeros(n, res.pfof.dtype)
         pfof[keep] = res.pfof
         res.pfof = pfof
@@ -95,8 +109,8 @@ def half_left_out(catalog):
 def id_altered(catalog):
     """One member of the largest structure handed to the second."""
 
-    def run(opt, hs, device):
-        res = catalog(opt, hs, device)
+    def run(opt, hs, device, mesh=None):
+        res = catalog(opt, hs, device, mesh)
         g = np.nonzero(res.pfof == 1)[0]
         res.pfof = res.pfof.copy()
         res.pfof[g[0]] = 2
@@ -108,8 +122,8 @@ def id_altered(catalog):
 def parent_altered(catalog):
     """The first substructure's parent set to none."""
 
-    def run(opt, hs, device):
-        res = catalog(opt, hs, device)
+    def run(opt, hs, device, mesh=None):
+        res = catalog(opt, hs, device, mesh)
         res.parent = res.parent.copy()
         sub = np.nonzero(res.parent > 0)[0]
         res.parent[sub[0]] = 0

@@ -6,7 +6,13 @@ The window drives one entry, ``models/pipeline.py::find_structures``,
 with the snapshot as host numpy arrays (as the CLI hands it a snapshot
 it has read), so each catalog's transfer in and copies out are inside
 it.  A catalog starts while less than ``seconds`` have passed since the
-window opened, and the last one finishes; the window ends with it.
+window opened, and the last one finishes on every card of the cell; the
+window ends with it.
+
+A cell of ``chips`` N > 1 runs every catalog over a mesh of its N cards
+(``parallel/mesh.py::make_mesh``; N shards on the CPU), and its memory,
+syncs and trace take every card; a cell of one card calls
+``find_structures`` with no mesh.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from . import e2e, registry
 
@@ -94,24 +100,76 @@ class Ctx:
         return self._work
 
 
-def _catalog(opt, hs: HostSnapshot, device: str):
+def _catalog(opt, hs: HostSnapshot, device: str, mesh=None):
+    """One catalog of the snapshot; over ``mesh`` where the cell has
+    several cards, else with no mesh argument."""
     from velociraptor_stf_tpu_torch.models.pipeline import find_structures
 
     a = hs.arrays
+    kw = {} if mesh is None else {"mesh": mesh}
     return find_structures(copy.deepcopy(opt), a["pos"], a["vel"],
                            a["mass"], boxsize=hs.snap.boxsize,
                            ptype=a["ptype"], extras=a["extras"],
-                           device=device)
+                           device=device, **kw)
 
 
-def _sync(device: str):
-    import torch
+@dataclass(frozen=True)
+class Cards:
+    """Where a cell runs: the device kind, the mesh over its cards (None
+    for one card) and the CUDA cards it syncs, frees and reads (none on
+    the CPU)."""
+    device: str
+    mesh: object = None
+    ids: Tuple[int, ...] = ()
 
-    if device == "cuda":
-        torch.cuda.synchronize()
+    @property
+    def count(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def sync(self):
+        import torch
+
+        for i in self.ids:
+            torch.cuda.synchronize(i)
+
+    def empty_cache(self):
+        import torch
+
+        for i in self.ids:
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
+
+    def reset_peaks(self):
+        import torch
+
+        for i in self.ids:
+            torch.cuda.reset_peak_memory_stats(i)
+
+    def peaks(self) -> List[int]:
+        """Each card's ``max_memory_allocated`` since its last reset."""
+        import torch
+
+        return [int(torch.cuda.max_memory_allocated(i)) for i in self.ids]
+
+    def names(self) -> List[str]:
+        import torch
+
+        return [torch.cuda.get_device_name(i) for i in self.ids]
 
 
-def run_window(opt, hs: HostSnapshot, seconds: float, device: str,
+def cell_cards(chips: int, device: str) -> Cards:
+    """The cards of a cell of ``chips``: cards 0..chips-1 with a mesh over
+    them where there are several (``chips`` CPU shards on the CPU)."""
+    mesh = None
+    if chips > 1:
+        from velociraptor_stf_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(chips, device)
+    ids = tuple(range(chips)) if device == "cuda" else ()
+    return Cards(device, mesh, ids)
+
+
+def run_window(opt, hs: HostSnapshot, seconds: float, cards: Cards,
                rng: random.Random, catalog=_catalog) -> Window:
     """Whole catalogs back to back for ``seconds``; keeps one catalog,
     drawn uniformly from the seed, for the comparison."""
@@ -119,8 +177,8 @@ def run_window(opt, hs: HostSnapshot, seconds: float, device: str,
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         c0 = time.perf_counter()
-        res = catalog(opt, hs, device)
-        _sync(device)
+        res = catalog(opt, hs, cards.device, cards.mesh)
+        cards.sync()
         c1 = time.perf_counter()
         win.walls.append(c1 - c0)
         win.timings.append(dict(res.timings))
@@ -133,12 +191,13 @@ def run_window(opt, hs: HostSnapshot, seconds: float, device: str,
 
 
 def power_limit() -> str:
+    """Every card's name and power limit, one card after another."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=20)
-        return out.stdout.strip().splitlines()[0] if out.stdout else "?"
+        return "; ".join(out.stdout.strip().splitlines()) or "?"
     except (OSError, subprocess.SubprocessError):
         return "?"
 
@@ -164,6 +223,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         from velociraptor_stf_tpu_torch.kernels import _build
 
         _build.load_library()
+    cards = cell_cards(cell.chips, device)
     from benchmark.harness.options import build_options
     from benchmark.reference import checks
 
@@ -173,31 +233,32 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     opt = build_options(cell.config, snap, snap.n)
     hs = to_host(snap)
     del snap
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    cards.empty_cache()
 
-    warm = catalog(opt, hs, device)
-    _sync(device)
+    warm = catalog(opt, hs, device, cards.mesh)
+    cards.sync()
     del warm
     setup_s = time.perf_counter() - t_start
 
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    cards.reset_peaks()
     rng = random.Random(seed * 1000003 + 17)
-    win = run_window(opt, hs, seconds, device, rng, catalog)
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    win = run_window(opt, hs, seconds, cards, rng, catalog)
+    # the fullest card's peak
+    peaks = cards.peaks() or [0] * cell.chips
+    peak = max(peaks)
     for w, t in zip(win.walls, win.timings):
         log(f"catalog {w:.4f} s: " + " ".join(
             f"{k} {v:.4f}" for k, v in t.items()))
     log(f"window: {len(win.walls)} catalogs in {win.seconds:.3f} s; "
         f"walls {min(win.walls):.4f}-{max(win.walls):.4f} s; "
         f"sample #{win.sample_index}; setup {setup_s:.3f} s; "
-        f"peak {peak / 2**30:.3f} GiB")
+        f"peak {peak / 2**30:.3f} GiB; per card " +
+        " ".join(f"{p / 2**30:.3f}" for p in peaks))
 
     dtrace = None
     if trace:
         t0 = time.perf_counter()
-        dtrace, traced = _traced(opt, hs, device, catalog)
+        dtrace, traced = _traced(opt, hs, cards, catalog)
         log(f"tracing took {time.perf_counter() - t0:.3f} s, "
             f"{len(dtrace.names)} device and {len(dtrace.host_names)} "
             f"host operations")
@@ -212,10 +273,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         return 3
 
     # the comparison, on the device once the program's state is freed
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    cards.empty_cache()
     ref_snap = copy.copy(hs.snap)
-    for k in ("pos", "vel", "mass", "ptype", "sub_of"):
+    for k in ("pos", "vel", "mass", "ptype"):
         v = getattr(ref_snap, k)
         setattr(ref_snap, k, None if v is None else v.to(device))
     t0 = time.perf_counter()
@@ -259,20 +319,23 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
                    for m in cell.end_to_end}
 
     log(f"metrics took {time.perf_counter() - t0:.3f} s")
+    kinds = cards.names() or [device] * cell.chips
     dev = {"platform": "gpu" if device == "cuda" else device,
-           "kind": torch.cuda.get_device_name(0) if device == "cuda"
-           else "cpu", "count": cell.chips, "memory_peak_bytes": int(peak)}
+           "kind": kinds[0], "count": cell.chips,
+           "memory_peak_bytes": int(peak),
+           "memory_peak_bytes_per_card": peaks, "kinds": kinds}
     out = {"correct": bool(correct), "attempted": len(win.walls),
            "failed": 0 if correct else 1, "metrics": metrics, "device": dev}
     if dtrace is not None:
         dev["busy_s"] = dtrace.busy_s()
+        dev["busy_s_per_card"] = dtrace.busy_per_card()
         dev["window_s"] = dtrace.window_s()
         out["breakdown"] = {"device_ops": [list(x) for x in
                                            dtrace.top_ops(10)],
                             "idle_gaps": [list(x) for x in
                                           dtrace.idle_gaps(10)]}
     out["checks"] = verdict
-    log(f"card: {power_limit() if device == 'cuda' else device}")
+    log(f"cards: {power_limit() if device == 'cuda' else device}")
     log(f"numbers not held to a limit: " + json.dumps(
         {k: v for k, v in numbers.items() if k not in cell.limits}))
     for k, v in verdict.items():
@@ -281,15 +344,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     return 0
 
 
-def _traced(opt, hs: HostSnapshot, device: str, catalog):
+def _traced(opt, hs: HostSnapshot, cards: Cards, catalog):
     """Profile whole catalogs for at least PROFILE_S seconds (one at
-    least), events kept in memory."""
+    least), events kept in memory, each device operation with its
+    card."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from .trace import WINDOW, reduce_profile
 
     acts = [ProfilerActivity.CPU]
-    if device == "cuda":
+    if cards.device == "cuda":
         acts.append(ProfilerActivity.CUDA)
     walls = []
     with profile(activities=acts) as prof:
@@ -297,8 +361,8 @@ def _traced(opt, hs: HostSnapshot, device: str, catalog):
             t0 = time.perf_counter()
             while not walls or time.perf_counter() - t0 < PROFILE_S:
                 c0 = time.perf_counter()
-                res = catalog(opt, hs, device)
-                _sync(device)
+                res = catalog(opt, hs, cards.device, cards.mesh)
+                cards.sync()
                 walls.append(time.perf_counter() - c0)
                 del res
-    return reduce_profile(prof), walls
+    return reduce_profile(prof, cards.count), walls

@@ -53,19 +53,22 @@ class Catalogs:
 
     def idle_share(self, name: str) -> float:
         """100 x (1 - the union of the device operations inside the spans
-        called ``name`` / their total length); 0 where no such span
-        lasted (no time, so none idle)."""
+        called ``name`` / their total length), on several cards taken
+        card by card and averaged over the cell's cards; 0 where no such
+        span lasted (no time, so none idle)."""
         s, e = self.intervals(name)
         total = float((e - s).sum())
         if total <= 0:
             return 0.0
-        tr = self.trace
-        ms, me = _merged(tr.start, tr.end)
-        busy = 0.0
-        for a, b in zip(s, e):
-            busy += float(np.clip(np.minimum(me, b) - np.maximum(ms, a), 0,
-                                  None).sum())
-        return 100.0 * (1.0 - busy / total)
+        shares = []
+        for ds, de in self.trace.per_card():
+            ms, me = _merged(ds, de)
+            busy = 0.0
+            for a, b in zip(s, e):
+                busy += float(np.clip(np.minimum(me, b) - np.maximum(ms, a),
+                                      0, None).sum())
+            shares.append(100.0 * (1.0 - busy / total))
+        return shares[0] if len(shares) == 1 else float(np.mean(shares))
 
 
 def traced(ctx) -> Optional[Catalogs]:

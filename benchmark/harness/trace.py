@@ -1,12 +1,15 @@
 """The device trace of a few catalogs: ``torch.profiler`` events kept in
 memory (no trace file is written), reduced to device operations with
-their intervals, the busy time as the union of those intervals, and the
-idle gaps named by the host operation running in each."""
+their intervals and cards, the busy time as the union of those intervals
+on each card, and the idle gaps named by the host operation running in
+each.  On several cards a number of the device is taken card by card
+and averaged over the cell's cards: a card that ran nothing counts as
+idle the whole window."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -21,16 +24,31 @@ class DeviceTrace:
     host_end: np.ndarray
     t0: float                 # the traced window on the same clock
     t1: float
+    card: Optional[np.ndarray] = None   # (n,) each operation's card index
+    cards: int = 1            # the cell's cards, 0..cards-1
 
     def window_s(self) -> float:
         return self.t1 - self.t0
 
+    def per_card(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """(start, end) of each card's operations, cards 0..cards-1; on
+        one card every operation."""
+        if self.cards == 1:
+            return [(self.start, self.end)]
+        return [(self.start[self.card == i], self.end[self.card == i])
+                for i in range(self.cards)]
+
+    def busy_per_card(self) -> List[float]:
+        """Seconds in which some device operation ran on each card: the
+        union of its intervals clipped to the window."""
+        return [float(_union(np.clip(s, self.t0, self.t1),
+                             np.clip(e, self.t0, self.t1)).sum())
+                for s, e in self.per_card()]
+
     def busy_s(self) -> float:
-        """Seconds in which some device operation ran: the union of the
-        intervals clipped to the window."""
-        s = np.clip(self.start, self.t0, self.t1)
-        e = np.clip(self.end, self.t0, self.t1)
-        return float(_union(s, e).sum())
+        """The cards' busy seconds, averaged over the cell's cards."""
+        busy = self.busy_per_card()
+        return busy[0] if len(busy) == 1 else float(np.mean(busy))
 
     def kernel_times(self, part: str) -> np.ndarray:
         """Durations (s) of the operations whose name contains ``part``."""
@@ -46,11 +64,22 @@ class DeviceTrace:
 
     def idle_gaps(self, k: int = 10) -> List[Tuple[str, float]]:
         """The ``k`` longest gaps between device operations in the window,
-        each named by the innermost host operation covering its middle."""
-        if not len(self.start):
+        each named by the innermost host operation covering its middle;
+        on several cards each card's gaps, named with the card first."""
+        if self.cards == 1:
+            return self._gaps(self.start, self.end, k)
+        gaps = []
+        for i, (s, e) in enumerate(self.per_card()):
+            gaps += [(f"card {i}: {name}", length)
+                     for name, length in self._gaps(s, e, k)]
+        return sorted(gaps, key=lambda g: -g[1])[:k]
+
+    def _gaps(self, start: np.ndarray, end: np.ndarray, k: int
+              ) -> List[Tuple[str, float]]:
+        if not len(start):
             return [("no device operation", self.window_s())]
-        s, e = _merged(np.clip(self.start, self.t0, self.t1),
-                       np.clip(self.end, self.t0, self.t1))
+        s, e = _merged(np.clip(start, self.t0, self.t1),
+                       np.clip(end, self.t0, self.t1))
         gs = np.concatenate([[self.t0], e])
         ge = np.concatenate([s, [self.t1]])
         length = ge - gs
@@ -108,13 +137,15 @@ def _annotation(ev) -> bool:
     return kind is not None and "annotation" in str(kind()).lower()
 
 
-def reduce_profile(prof) -> DeviceTrace:
+def reduce_profile(prof, cards: int = 1) -> DeviceTrace:
     """Device and host operations of a finished ``torch.profiler``
     session whose traced catalogs ran inside ``record_function(WINDOW)``,
-    which bounds the window on the profiler's own clock."""
+    which bounds the window on the profiler's own clock; each device
+    operation keeps its card's index, for a cell of ``cards`` cards."""
     import torch
 
     dev_n, dev_s, dev_e, host_n, host_s, host_e = [], [], [], [], [], []
+    dev_c = []
     t0 = t1 = None
     for ev in prof.profiler.kineto_results.events():
         s, e = _times(ev)
@@ -128,6 +159,7 @@ def reduce_profile(prof) -> DeviceTrace:
             dev_n.append(ev.name())
             dev_s.append(s)
             dev_e.append(e)
+            dev_c.append(ev.device_index())
         else:
             host_n.append(ev.name())
             host_s.append(s)
@@ -136,4 +168,4 @@ def reduce_profile(prof) -> DeviceTrace:
         raise RuntimeError("the trace holds no traced window")
     return DeviceTrace(dev_n, np.asarray(dev_s), np.asarray(dev_e),
                        host_n, np.asarray(host_s), np.asarray(host_e),
-                       t0, t1)
+                       t0, t1, np.asarray(dev_c, np.int64), cards)

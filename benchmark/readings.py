@@ -34,12 +34,13 @@ def main(argv=None) -> int:
     from benchmark import faults
     from benchmark.harness import registry
     from benchmark.harness.options import build_options
-    from benchmark.harness.runner import _catalog, to_host
+    from benchmark.harness.runner import _catalog, cell_cards, to_host
     from benchmark.reference import checks, control
 
     if sum(f in faults.PATCHES for f in args.fault) > 1:
         ap.error("one patched fault a process")
     cell = registry.find_cell(args.workload)
+    cards = cell_cards(cell.chips, args.device)
     runs = [("program", args.seeds), ("control", args.control_seeds)]
     runs += [(f, args.fault_seeds) for f in args.fault]
     for kind, seeds in runs:
@@ -58,7 +59,8 @@ def main(argv=None) -> int:
                 cand = control.build(control.lowered(snap), prm)
             else:
                 opt = build_options(cell.config, snap, snap.n)
-                cand = catalog(opt, to_host(snap), args.device)
+                cand = catalog(opt, to_host(snap), args.device,
+                               cards.mesh)
             t1 = time.perf_counter()
             numbers = checks.compare(snap, prm, cand)
             t2 = time.perf_counter()
@@ -76,8 +78,7 @@ def main(argv=None) -> int:
                                    zip(snap.sub_sizes, held)]
             print(json.dumps(row), flush=True)
             del snap, cand
-            if args.device == "cuda":
-                torch.cuda.empty_cache()
+            cards.empty_cache()
     return 0
 
 

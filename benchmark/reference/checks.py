@@ -78,6 +78,7 @@ DEFAULTS = {
     "Unbind_flag": 0, "Allowed_kinetic_potential_ratio": 1.0,
     "Softening_length": 0.0, "Bound_halos": 0,
     "Search_for_substructure": 0,
+    "Physical_linking_length": 0.2, "Halo_linking_length_factor": 1.0,
 }
 
 
@@ -101,7 +102,14 @@ class Params:
         self.e = e
         self.box = float(boxsize)
         self.a = float(a)
-        self.b3d = e["Halo_3D_linking_length"] * boxsize / n_total ** (1 / 3)
+        # the field's linking length over the mean spacing:
+        # Halo_3D_linking_length where given, else
+        # Halo_linking_length_factor x Physical_linking_length
+        ell = e.get("Halo_3D_linking_length", -1.0)
+        if ell <= 0:
+            ell = e["Halo_linking_length_factor"] * \
+                e["Physical_linking_length"]
+        self.b3d = ell * boxsize / n_total ** (1 / 3)
         self.min_size = int(e["Minimum_size"])
         hm = int(e["Minimum_halo_size"])
         self.halo_min = hm if hm > 0 else self.min_size
@@ -297,20 +305,22 @@ def unbound_share(pos, vel, mass, pfof: torch.Tensor, checked: torch.Tensor,
     structure's members, T in the frame of their centre of mass."""
     ng1 = checked.shape[0]
     gid = torch.where(checked[torch.clamp(pfof, 0, ng1 - 1)], pfof, 0)
-    members = gid > 0
-    nm = int(members.sum())
+    members = torch.nonzero(gid > 0).squeeze(1)
+    nm = int(members.numel())
     if nm == 0:
         return 0.0
-    W = direct_potential(pos, mass, gid, prm.G, prm.eps, prm.box)
-    m = torch.where(members, mass.double(), 0.0)
-    v = vel.double()
+    W = direct_potential(pos, mass, gid, prm.G, prm.eps, prm.box)[members]
+    # the members alone: the other particles add nothing to the sums
+    g = gid[members]
+    m = mass[members].double()
+    v = vel[members].double()
     msum = torch.zeros(ng1, dtype=torch.float64, device=pos.device
-                       ).index_add_(0, gid, m)
+                       ).index_add_(0, g, m)
     vcm = torch.zeros(ng1, 3, dtype=torch.float64, device=pos.device
-                      ).index_add_(0, gid, v * m[:, None]) / \
+                      ).index_add_(0, g, v * m[:, None]) / \
         torch.clamp_min(msum, 1e-300)[:, None]
-    T = 0.5 * mass.double() * ((v - vcm[gid]) ** 2).sum(1)
-    unbound = members & (prm.eratio * T + W > 0)
+    T = 0.5 * m * ((v - vcm[g]) ** 2).sum(1)
+    unbound = prm.eratio * T + W > 0
     return float(unbound.sum()) / nm
 
 
@@ -411,27 +421,28 @@ def compare(snap, prm: Params, cand, device=None) -> Dict[str, float]:
     top_of = torch.as_tensor(top_np, device=dev)
     out: Dict[str, float] = {}
 
-    # the field search's 3D groups
+    # the field search's 3D groups: of the dark matter where a baryon
+    # search ran, else of every particle (no copy of the arrays)
     if prm.baryons and ptype is not None:
         dmi = torch.nonzero(ptype == 1).squeeze(1)
-        p3 = torch.as_tensor(np.asarray(cand.pfof3d, np.int64), device=dev) \
-            if cand.pfof3d is not None else top_of[pfof[dmi]]
+        dpos, dvel, dmass, tree = pos[dmi], vel[dmi], mass[dmi], \
+            top_of[pfof[dmi]]
     else:
-        dmi = torch.arange(pos.shape[0], device=dev)
-        p3 = torch.as_tensor(np.asarray(cand.pfof3d, np.int64), device=dev) \
-            if cand.pfof3d is not None else top_of[pfof]
-    if p3.shape != dmi.shape:
+        dpos, dvel, dmass, tree = pos, vel, mass, top_of[pfof]
+    p3 = torch.as_tensor(np.asarray(cand.pfof3d, np.int64), device=dev) \
+        if cand.pfof3d is not None else tree
+    if p3.shape != tree.shape:
         raise ValueError("the catalog's 3D ids do not match the snapshot")
-    dpos = pos[dmi]
     part3 = groups.fof(dpos, prm.b3d, prm.box)
     out["fof3d_wrong"] = float(groups.sandwich_violations(
         p3, part3, prm.halo_min))
     out["fof_ambiguous_pairs"] = float(part3.ambiguous_pairs)
+    del p3
 
     if prm.run6d:
-        out["fof6d_wrong"] = float(_fof6d_wrong(
-            dpos, vel[dmi], mass[dmi], part3, top_of[pfof[dmi]], prm))
-    del part3
+        out["fof6d_wrong"] = float(_fof6d_wrong(dpos, dvel, dmass, part3,
+                                                tree, prm))
+    del part3, dpos, dvel, dmass, tree
 
     out["hierarchy_wrong"] = float(hierarchy_wrong(
         pf_np, ng, cand.hostid, cand.parent, cand.hierarchy_level,
@@ -487,9 +498,11 @@ def vscale2_6d(vel, mass, labels: torch.Tensor, sel: torch.Tensor,
     cnt = torch.bincount(torch.where(sel, labels, n), minlength=n + 1)[:n]
     big = int(torch.argmax(cnt))
     m = torch.where(labels == big, mass.double(), 0.0)
-    v = vel.double()
+    v = vel.to(torch.float64, copy=True)
     vm = (v * m[:, None]).sum(0) / m.sum()
-    return float((((v - vm) ** 2).sum(1) * m).sum() / m.sum()) * vfac ** 2
+    # ((v - vm) ** 2).sum(1) * m, in place: one (n, 3) array at a time
+    d2 = v.sub_(vm).square_().sum(1).mul_(m)
+    return float(d2.sum() / m.sum()) * vfac ** 2
 
 
 def _fof6d_wrong(pos, vel, mass, part3, prog_tree, prm: Params) -> int:

@@ -20,9 +20,24 @@ def budget_for(device: torch.device) -> int:
     return (1 << 25) if device.type == "cuda" else (1 << 20)
 
 
+# query windows (27 a query point) held at once: the query points go in
+# blocks of at most WINDOWS // 27, each with its own window tables, so
+# that a volume of hundreds of millions of points fits the card
+WINDOWS = 1 << 28
+
+
 def _cells(pos: torch.Tensor, box: float, nc: int) -> torch.Tensor:
     c = torch.floor(pos.double() * (nc / box)).long()
     return torch.clamp(c, 0, nc - 1)
+
+
+def _cell_keys(pos: torch.Tensor, box: float, nc: int) -> torch.Tensor:
+    """(x * nc + y) * nc + z of each point's cell, a column at a time."""
+    key = None
+    for d in range(3):
+        c = _cells(pos[:, d], box, nc)
+        key = c if key is None else key * nc + c
+    return key
 
 
 def neighbour_pairs(qpos: torch.Tensor, rpos: torch.Tensor, reach: float,
@@ -37,11 +52,20 @@ def neighbour_pairs(qpos: torch.Tensor, rpos: torch.Tensor, reach: float,
     nc = max(1, int(box // reach))
     if nc < 3:
         nc = 1          # one cell: every reference point is a candidate
-    rc = _cells(rpos, box, nc)
-    rkey = (rc[:, 0] * nc + rc[:, 1]) * nc + rc[:, 2]
-    rkey, rorder = torch.sort(rkey)
-    qc = _cells(qpos, box, nc)
+    rkey, rorder = torch.sort(_cell_keys(rpos, box, nc))
     offsets = [(0, 0, 0)] if nc == 1 else _OFFSETS
+    step = max(1, WINDOWS // len(offsets))
+    for q0 in range(0, qpos.shape[0], step):
+        for qi, rj in _block_pairs(qpos[q0:q0 + step], rkey, rorder, box,
+                                   nc, offsets, budget):
+            yield qi + q0, rj
+
+
+def _block_pairs(qpos, rkey, rorder, box: float, nc: int, offsets,
+                 budget: int):
+    """``neighbour_pairs`` of one block of query points."""
+    dev = qpos.device
+    qc = _cells(qpos, box, nc)
     starts, counts = [], []
     for dx, dy, dz in offsets:
         x = torch.remainder(qc[:, 0] + dx, nc)

@@ -100,27 +100,28 @@ def main(argv=None) -> int:
     ap.add_argument("--traced", type=int, default=12)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
-    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from benchmark.harness import registry
     from benchmark.harness.options import build_options
-    from benchmark.harness.runner import _catalog, power_limit, to_host
+    from benchmark.harness.runner import (_catalog, cell_cards, power_limit,
+                                          to_host)
 
     cell = registry.find_cell(args.workload)
+    cards = cell_cards(cell.chips, "cuda")
     snap = cell.generator(cell.config, cell.traffic, args.seed, "cuda")
     opt = build_options(cell.config, snap, snap.n)
     hs = to_host(snap)
     del snap
-    torch.cuda.empty_cache()
-    _catalog(opt, hs, "cuda")
-    torch.cuda.synchronize()
+    cards.empty_cache()
+    _catalog(opt, hs, "cuda", cards.mesh)
+    cards.sync()
     head = {"workload": args.workload, "seed": args.seed,
             "card": power_limit()}
     for i in range(args.catalogs):
         c0 = time.perf_counter()
-        res = _catalog(opt, hs, "cuda")
-        torch.cuda.synchronize()
+        res = _catalog(opt, hs, "cuda", cards.mesh)
+        cards.sync()
         wall = time.perf_counter() - c0
         print(json.dumps(dict(head, kind="timed", catalog=i, wall_s=wall,
                               stages_s=sum(v for k, v in res.timings.items()
@@ -133,8 +134,8 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         for i in range(args.traced):
             with record_function(f"spread.catalog.{i}"):
-                _catalog(opt, hs, "cuda")
-                torch.cuda.synchronize()
+                _catalog(opt, hs, "cuda", cards.mesh)
+                cards.sync()
     for row in per_catalog(prof, args.traced):
         print(json.dumps(dict(head, kind="traced", **row)), flush=True)
     return 0

@@ -32,11 +32,11 @@ def breakdown(workload: str, seed: int, device: str = "cuda", root=None):
     opt = build_options(cell.config, snap, snap.n)
     hs = runner.to_host(snap)
     del snap
-    runner._catalog(opt, hs, device)
-    if device == "cuda":
-        torch.cuda.synchronize()
+    cards = runner.cell_cards(cell.chips, device)
+    runner._catalog(opt, hs, device, cards.mesh)
+    cards.sync()
     timing.clear_spans()
-    trace, _ = runner._traced(opt, hs, device, runner._catalog)
+    trace, _ = runner._traced(opt, hs, cards, runner._catalog)
     cats = spans.traced(runner.Ctx(runner.Window(), trace, None))
     if cats is None:
         raise SystemExit("the program recorded no spans")

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.reference import groups
+from benchmark.reference import groups, pairs
 from benchmark.roofline import fof as roof
 
 
@@ -33,7 +33,10 @@ def components(adj):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_pairs_within_b_match_brute_force(seed):
+@pytest.mark.parametrize("windows", [pairs.WINDOWS, 27 * 50])
+def test_pairs_within_b_match_brute_force(seed, windows, monkeypatch):
+    # the query points in one block, and in blocks of 50
+    monkeypatch.setattr(pairs, "WINDOWS", windows)
     rng = np.random.default_rng(seed)
     box, b = 1.0, 0.09
     pos = rng.uniform(0, box, (700, 3))

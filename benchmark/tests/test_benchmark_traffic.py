@@ -114,3 +114,27 @@ def test_every_seed_draws_the_same_halos(root, config, traffic):
                        dtype=torch.float64)
     assert ((a - b).abs() <= tol).all()
     assert not torch.allclose(ca, cb)
+
+
+def place_every(rng, radii, box, gap):
+    """Halo centres tested against every centre placed before."""
+    centres = np.zeros((len(radii), 3))
+    for i, r in enumerate(radii):
+        while True:
+            c = rng.uniform(0.0, box, 3)
+            d = centres[:i] - c
+            d -= box * np.round(d / box)
+            if np.all((d * d).sum(1) > (radii[:i] + r + gap) ** 2):
+                break
+        centres[i] = c
+    return centres
+
+
+@pytest.mark.parametrize("n,box", [(300, 1.0), (2000, 1.0), (50, 0.05)])
+def test_halos_are_placed_as_against_every_centre(n, box):
+    # the largest radius 0.01: a grid of 48 cells a side, and (box 0.05)
+    # a box too small for three cells, which tests every centre
+    radii = np.sort(np.random.default_rng(n).uniform(0.001, 0.01, n))[::-1]
+    got = cosmo_box._place(np.random.default_rng(1), radii, box, 0.0005)
+    want = place_every(np.random.default_rng(1), radii, box, 0.0005)
+    assert np.array_equal(got, want)

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,19 +138,39 @@ def cfg_numbers(cfg: dict) -> Dict[str, float]:
 def _place(rng: np.random.Generator, radii: np.ndarray, box: float,
            gap: float) -> np.ndarray:
     """Centres for spheres of ``radii`` (largest first) in a periodic box,
-    no two closer than the sum of their radii plus ``gap``."""
-    centres = np.zeros((len(radii), 3))
+    no two closer than the sum of their radii plus ``gap``.  A draw is
+    tested against the centres in the 27 grid cells around it, cells
+    wider than the largest such distance, so the centres farther away
+    could not refuse it: the same draws and centres as a test against
+    every centre, in a time that grows with the number of halos and not
+    with its square."""
+    n = len(radii)
+    centres = np.zeros((n, 3))
+    reach = 2.0 * float(radii[0]) + gap if n else 0.0
+    nc = int(box // (1.01 * reach)) if reach > 0 else 1
+    if nc < 3:
+        nc = 1          # one cell: every centre is tested
+    offsets = np.array([(dx, dy, dz) for dx in (-1, 0, 1)
+                        for dy in (-1, 0, 1) for dz in (-1, 0, 1)])
+    if nc == 1:
+        offsets = offsets[13:14]
+    cells: Dict[Tuple[int, int, int], List[int]] = {}
     for i, r in enumerate(radii):
         for _ in range(10000):
             c = rng.uniform(0.0, box, 3)
-            d = centres[:i] - c
+            k = np.minimum((c * (nc / box)).astype(np.int64), nc - 1)
+            near = np.array([j for o in (k + offsets) % nc
+                             for j in cells.get(tuple(o.tolist()), ())],
+                            np.int64)
+            d = centres[near] - c
             d -= box * np.round(d / box)
             if i == 0 or np.all(np.einsum("ij,ij->i", d, d) >
-                                (radii[:i] + r + gap) ** 2):
+                                (radii[near] + r + gap) ** 2):
                 break
         else:
             raise RuntimeError("halos do not fit the box")
         centres[i] = c
+        cells.setdefault(tuple(k.tolist()), []).append(i)
     return centres
 
 
@@ -280,22 +300,28 @@ def generate(cfg: dict, traffic: dict, seed: int,
         sub_of = torch.cat([sub_of, sidx])
     nh = sum(int(p.shape[0]) for p in parts_pos)
     nbg = ndm - nh
+    # the per-particle arrays are built in place and permuted one at a
+    # time, so that a volume of hundreds of millions of particles fits
     parts_pos.append(torch.rand(nbg, 3, generator=gen, device=device,
-                                dtype=torch.float64) * box)
+                                dtype=torch.float64).mul_(box))
     parts_vel.append(torch.randn(nbg, 3, generator=gen, device=device,
-                                 dtype=torch.float64) *
-                     float(t["background_sigma"]))
+                                 dtype=torch.float64).mul_(
+                                     float(t["background_sigma"])))
     halo_of = torch.cat([halo_of, torch.full((nbg,), -1, dtype=torch.int64,
                                              device=device)])
     sub_of = torch.cat([sub_of, torch.full((nbg,), -1, dtype=torch.int64,
                                            device=device)])
-    pos = torch.remainder(torch.cat(parts_pos), box)
+    pos = torch.cat(parts_pos).remainder_(box)
+    del parts_pos
     vel = torch.cat(parts_vel)
-    del parts_pos, parts_vel
+    del parts_vel
 
     perm = torch.randperm(ndm, generator=gen, device=device)
-    pos, vel, halo_of, sub_of = pos[perm], vel[perm], halo_of[perm], \
-        sub_of[perm]
+    pos = pos[perm]
+    vel = vel[perm]
+    halo_of = halo_of[perm]
+    sub_of = sub_of[perm]
+    del perm
     mass = torch.full((ndm,), mdm, dtype=torch.float64, device=device)
     if "gas" not in cfg["species"]:
         return Snapshot(pos=_f32(pos, box), vel=vel.float(),
