@@ -1,8 +1,9 @@
 """Faults planted in the program, to show that the comparison catches
 them: a stage that returns its input unchanged (the recursion, every
 unbind, the baryon association), half of the input left out, an answer
-altered where it is produced, and, in a cell on several cards, the
-exchange between the cards left out.
+altered where it is produced, in a cell on several cards the exchange
+between the cards left out, and a configuration's own mechanism swapped
+for another's (the adaptive 6D scale, the FOF-particle SO).
 
 A patch fault replaces a function of the program through ``setattr``
 (pytest's ``monkeypatch.setattr``, or the plain one for a process that
@@ -72,8 +73,40 @@ def exchange_left_out(set_attr) -> None:
     set_attr(collectives, "ppermute", zeros)
 
 
+def adaptive_scale_global(set_attr) -> None:
+    """Under FOF6DADAPTIVE the 6D search links every 3D group with the
+    largest group's velocity scale, as FOF6D does, not with its own."""
+    from velociraptor_stf_tpu_torch.models import halos
+
+    def largest_group(opt, pfof3, ng3):
+        return (pfof3 == 1).long(), 2
+
+    def one_scale(opt, sig2, pfof3):
+        return torch.where(pfof3 > 0, sig2[1] * opt.ellhalo6dvfac ** 2, 1.0)
+
+    set_attr(halos, "scale_groups", largest_group)
+    set_attr(halos, "scales_per_particle", one_scale)
+
+
+def so_all_particles(set_attr) -> None:
+    """The field halos' inclusive SO of ``Inclusive_halo_masses`` 1 and 2
+    (from their own FOF particles) is computed as mode 3's, from every
+    particle around the centre."""
+    from velociraptor_stf_tpu_torch.models import pipeline
+
+    real = pipeline._so_stage
+
+    def as_mode3(opt, *a, **kw):
+        opt = copy.copy(opt)
+        opt.iInclusiveHalo = 3
+        return real(opt, *a, **kw)
+
+    set_attr(pipeline, "_so_stage", as_mode3)
+
+
 PATCHES = {f.__name__: f for f in (unchanged_substructure, unbind_skipped,
-                                   unchanged_baryons, exchange_left_out)}
+                                   unchanged_baryons, exchange_left_out,
+                                   adaptive_scale_global, so_all_particles)}
 
 
 def half_left_out(catalog):

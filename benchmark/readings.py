@@ -10,6 +10,7 @@ The benchmark's runs never run this.
 """
 
 import argparse
+import copy
 import json
 import sys
 import time
@@ -37,6 +38,13 @@ def main(argv=None) -> int:
     from benchmark.harness.runner import _catalog, cell_cards, to_host
     from benchmark.reference import checks, control
 
+    def on_device(host_snap, device):
+        snap = copy.copy(host_snap)
+        for k in ("pos", "vel", "mass", "ptype"):
+            v = getattr(snap, k)
+            setattr(snap, k, None if v is None else v.to(device))
+        return snap
+
     if sum(f in faults.PATCHES for f in args.fault) > 1:
         ap.error("one patched fault a process")
     cell = registry.find_cell(args.workload)
@@ -55,18 +63,37 @@ def main(argv=None) -> int:
             snap = cell.generator(cell.config, cell.traffic, seed,
                                   args.device)
             prm = checks.Params(cell.config, snap.boxsize, snap.n, snap.a)
-            if kind == "control":
-                cand = control.build(control.lowered(snap), prm)
+            cards.reset_peaks()
+            low = control.lowered(snap) if kind == "control" else None
+            # as a run does: the candidate is made with the snapshot on
+            # the host alone, the comparison gets it back on the device
+            hs = to_host(snap)
+            del snap
+            cards.empty_cache()
+            if low is not None:
+                cand = control.build(low, prm)
+                del low
             else:
-                opt = build_options(cell.config, snap, snap.n)
-                cand = catalog(opt, to_host(snap), args.device,
-                               cards.mesh)
+                opt = build_options(cell.config, hs.snap, hs.snap.n)
+                cand = catalog(opt, hs, args.device, cards.mesh)
+            cards.sync()
+            snap = on_device(hs.snap, args.device)
+            del hs
             t1 = time.perf_counter()
+            catalog_peaks = cards.peaks()
+            cards.empty_cache()
+            cards.reset_peaks()
             numbers = checks.compare(snap, prm, cand)
+            cards.sync()
             t2 = time.perf_counter()
             row = {"workload": args.workload, "kind": kind, "seed": seed,
                    "numbers": numbers, "catalog_s": t1 - t0,
                    "compare_s": t2 - t1}
+            if catalog_peaks:
+                # card 0's peaks in GiB: the candidate's making (the
+                # control's with its lowered snapshot), and the comparison
+                row["catalog_peak_gib"] = catalog_peaks[0] / 2 ** 30
+                row["compare_peak_gib"] = cards.peaks()[0] / 2 ** 30
             if snap.sub_sizes is not None and len(snap.sub_sizes):
                 # each planted subhalo's size and the most of it that one
                 # substructure holds

@@ -230,3 +230,81 @@ def field_so(pos, mass, q: Dict[str, torch.Tensor], field: torch.Tensor,
     return spherical_overdensities(pos, mass, q["cm"][field], rsearch,
                                    lnthr, minnum, float(mass.min()), box,
                                    dtype=dtype)
+
+
+def fof_so(pos, mass, gid, field: torch.Tensor, lnthr: List[float],
+           minhalofac: float, minsize: int, box: float,
+           dtype=torch.float64):
+    """(M, R), each (H, nthr): the SO masses and radii of the field halos
+    ``field`` from their own FOF particles alone (``gid`` the halo of each
+    particle, 0 none), as the catalog's inclusive masses of
+    Inclusive_halo_masses 1 and 2 (VELOCIraptor's GetInclusiveMasses):
+    the members sorted by their distance from the members' centre of
+    mass (minimum image about the lowest-index member); at each member
+    the enclosed mass over the sphere through it; the first member, from
+    the centre out and past the first ``minnum``, at which that density
+    falls below a threshold, log-log interpolated with the member inside
+    it; the halo's mass and size where none does; 0 where the mass is
+    under the innermost member's."""
+    dev = pos.device
+    H = field.shape[0]
+    nthr = len(lnthr)
+    top = max(int(gid.max()) if gid.numel() else 0,
+              int(field.max()) if H else 0)
+    slot = torch.full((top + 1,), -1, dtype=torch.int64, device=dev)
+    slot[field] = torch.arange(H, device=dev)
+    Mout = torch.zeros(H, nthr, dtype=torch.float64, device=dev)
+    Rout = torch.zeros(H, nthr, dtype=torch.float64, device=dev)
+    sel = torch.nonzero(gid > 0).squeeze(1)
+    h = slot[gid[sel]]
+    sel, h = sel[h >= 0], h[h >= 0]
+    if h.numel() == 0:
+        return Mout, Rout
+    p = pos[sel].to(dtype)
+    m = mass[sel].to(dtype)
+    first = torch.full((H,), sel.numel(), dtype=torch.int64, device=dev)
+    first = first.scatter_reduce(0, h, torch.arange(sel.numel(),
+                                                    device=dev), "amin")
+    ref = p[torch.clamp(first, max=sel.numel() - 1)][h]
+    pu = ref + min_image(p - ref, box)
+    msum = torch.zeros(H, dtype=dtype, device=dev).index_add_(0, h, m)
+    cm = torch.zeros(H, 3, dtype=dtype, device=dev).index_add_(
+        0, h, pu * m[:, None]) / torch.clamp_min(msum, 1e-30)[:, None]
+    r = torch.sqrt(torch.clamp_min(((pu - cm[h]) ** 2).sum(1), 1e-30))
+    # members by halo, then by radius
+    order = torch.argsort(r)
+    order = order[torch.argsort(h[order], stable=True)]
+    h, r, m = h[order], r[order], m[order]
+    num = torch.bincount(h, minlength=H)
+    start = torch.cumsum(num, 0) - num
+    k = torch.arange(h.numel(), device=dev)
+    rank = k - start[h]
+    # a halo with no member starts past the end: never read through h
+    s0 = torch.clamp(start, max=h.numel() - 1)
+    mc = torch.cumsum(m, 0)
+    Mcum = mc - (mc[s0] - m[s0])[h]
+    lnrho = torch.log(Mcum) - 3.0 * torch.log(r) + \
+        math.log(3.0 / (4.0 * math.pi))
+    minnum = torch.clamp_min((minhalofac * num.double() + 1).long(),
+                             int(minsize * minhalofac + 1))
+    size = torch.zeros(H, dtype=dtype, device=dev).scatter_reduce(
+        0, h, r, "amax")
+    innermost = m[s0]
+    for t, thr in enumerate(lnthr):
+        cond = (lnrho < thr) & (rank >= minnum[h])
+        kk = torch.full((H,), h.numel(), dtype=torch.int64, device=dev)
+        kk = kk.scatter_reduce(0, h[cond], k[cond], "amin")
+        found = kk < h.numel()
+        kc = torch.clamp_max(kk, h.numel() - 1)
+        kp = torch.maximum(kc - 1, s0)
+        drho = lnrho[kc] - lnrho[kp]
+        safe = drho.abs() > 1e-12
+        g1 = torch.where(safe, torch.log(r[kc] / r[kp]) / drho, 0.0)
+        g2 = torch.where(safe, torch.log(Mcum[kc] / Mcum[kp]) / drho, 0.0)
+        delta = thr - lnrho[kc]
+        R = torch.where(found, r[kc] * torch.exp(g1 * delta), size)
+        M = torch.where(found, Mcum[kc] * torch.exp(g2 * delta), msum)
+        bad = M < innermost
+        Mout[:, t] = torch.where(bad, 0.0, M).double()
+        Rout[:, t] = torch.where(bad, 0.0, R).double()
+    return Mout, Rout

@@ -8,10 +8,17 @@ each holds the catalog to:
   (``groups.sandwich_violations``) -- the program's 3D groups are the
   union of each field halo with its substructures, or ``pfof3d`` where
   the search ran on the dark matter alone.
-- ``fof6d_wrong`` (6D field searches): dark-matter particles of a
-  structure tree not inside one 6D FOF group of the reference (3D group
-  of the halo minimum size, the largest group's velocity dispersion as
-  the velocity scale).
+- ``fof6d_wrong`` (6D field searches): dark-matter particles at which
+  the structure trees break the configuration's 6D search.
+  ``FoF_Field_search_type=4`` (FOF6D): a tree not inside one 6D FOF
+  group of the reference (links inside one 3D group of the halo minimum
+  size, the largest group's velocity dispersion as the velocity scale).
+  ``=3`` (FOF6DADAPTIVE): each of the catalog's 3D groups is linked with
+  its own velocity dispersion as the scale (``_fof6d_adaptive``); where
+  the trees are the field search's groups (``Params.trees_are_groups``)
+  they have to be its whole 6D groups, FOF between the certain and the
+  possible links (``groups.sandwich_violations``), else each has to lie
+  inside one.  ``fof6d_ambiguous_pairs`` is reported beside it.
 - ``hierarchy_wrong``: structures whose parent, level or host break the
   hierarchy's rules, or that hold no member.
 - ``props_gap``: the widest relative gap between the catalog's and the
@@ -22,17 +29,23 @@ each holds the catalog to:
   off by more than CENTRE_TOL (``centre_gap``, the widest, is reported
   beside it).
 - ``so_off_share``: share of the field halos' spherical overdensity
-  masses and radii (all particles around the centre) off by more than
-  SO_TOL.
+  masses and radii off by more than SO_TOL.  ``Inclusive_halo_masses=3``:
+  from all particles around the centre, on 128 log bins
+  (``catalog.field_so``).  ``=1`` and ``=2``: from the halo's
+  pre-unbind FOF particles alone, member by member
+  (``catalog.fof_so``): its structure tree where the trees are the field
+  search's groups, else the reference's own group that holds the tree
+  (6D where the search is 6D).  ``=0``: not computed.
 - ``unbound_share`` (configs that unbind): share of the members of the
   structures the configuration unbinds (every structure after a baryon
   search's combined unbind, or with ``Bound_halos`` >= 1; otherwise the
   substructures) that are not bound in their structure as it stands:
   Allowed_kinetic_potential_ratio x T + W > 0, with W the float64
   direct potential of the structure's own members and T in its centre
-  of mass frame.  The program keeps the potential of the members it
-  started from (``Keep_background_potential``), so a sound catalog reads
-  a little above 0.
+  of mass frame.  With ``Keep_background_potential=1`` the program
+  keeps the potential of the members a structure started with, so a
+  sound catalog reads above 0; with ``=0`` it recomputes the potential
+  of the members that stay as others leave, as this number does.
 - ``hosts_missed`` (planted subhalos): share of the hosts with planted
   subhalos in which no substructure holds half of any of them: the
   recursion found nothing there.  ``subhalos_missed``, the share of
@@ -79,6 +92,7 @@ DEFAULTS = {
     "Softening_length": 0.0, "Bound_halos": 0,
     "Search_for_substructure": 0,
     "Physical_linking_length": 0.2, "Halo_linking_length_factor": 1.0,
+    "Keep_FOF": 0,
 }
 
 
@@ -114,10 +128,20 @@ class Params:
         hm = int(e["Minimum_halo_size"])
         self.halo_min = hm if hm > 0 else self.min_size
         self.run6d = int(e["FoF_Field_search_type"]) in (3, 4)
+        # FOF6DADAPTIVE: each 3D group's own velocity scale (type 4,
+        # FOF6D: the largest group's for all)
+        self.adaptive6d = int(e["FoF_Field_search_type"]) == 3
         self.baryons = int(e["Baryon_searchflag"]) > 0
         self.iterate_cm = bool(e["Iterate_cm_flag"])
         self.lnthr = catalog.so_thresholds(e, sorted(extra), self.a)
         self.inclusive = int(e["Inclusive_halo_masses"])
+        # the catalog's structure trees are exactly the field search's
+        # groups: no unbind of the field halos, no baryons added, no 3DFOF
+        # envelopes, and the recursion's unbind hands what it drops from a
+        # candidate back to the structure searched (its splice moves only
+        # the candidates' own members: models/substructure.py)
+        self.trees_are_groups = int(e["Bound_halos"]) == 0 and \
+            not self.baryons and int(e["Keep_FOF"]) == 0
         self.G = e["Gravity"]
         self.eratio = e["Allowed_kinetic_potential_ratio"]
         self.eps = e["Softening_length"]
@@ -437,12 +461,41 @@ def compare(snap, prm: Params, cand, device=None) -> Dict[str, float]:
     out["fof3d_wrong"] = float(groups.sandwich_violations(
         p3, part3, prm.halo_min))
     out["fof_ambiguous_pairs"] = float(part3.ambiguous_pairs)
-    del p3
 
-    if prm.run6d:
+    # the reference's own field groups (a label per searched particle),
+    # where the FOF-particle SO needs them
+    own = None
+    if prm.adaptive6d:
+        sub, part6 = _fof6d_adaptive(dpos, dvel, dmass, p3, prm)
+        if prm.trees_are_groups:
+            # each tree is a whole 6D group, and nothing outside the 3D
+            # groups is grouped
+            wrong = groups.sandwich_violations(tree[sub], part6,
+                                               prm.halo_min) + \
+                int(((tree > 0) & (p3 <= 0)).sum())
+        else:
+            own = torch.full_like(tree, -1)
+            own[sub] = sub[part6.possible]
+            wrong = groups.subset_violations(tree, own, p3 > 0)
+        out["fof6d_wrong"] = float(wrong)
+        out["fof6d_ambiguous_pairs"] = float(part6.ambiguous_pairs)
+        del sub, part6
+    elif prm.run6d:
         out["fof6d_wrong"] = float(_fof6d_wrong(dpos, dvel, dmass, part3,
                                                 tree, prm))
-    del part3, dpos, dvel, dmass, tree
+    del p3
+    fof_gid = None
+    if prm.inclusive in (1, 2) and not prm.trees_are_groups:
+        if own is None:
+            own = _fof6d_labels(dpos, dvel, dmass, part3, prm)[0] \
+                if prm.run6d else part3.possible
+            if own is None:
+                own = torch.full_like(tree, -1)
+        fof_gid = _field_groups(own, tree, ng + 1)
+        if prm.baryons and ptype is not None:
+            # the pre-unbind groups hold dark matter alone
+            fof_gid = torch.zeros_like(pfof).index_copy_(0, dmi, fof_gid)
+    del part3, dpos, dvel, dmass, tree, own
 
     out["hierarchy_wrong"] = float(hierarchy_wrong(
         pf_np, ng, cand.hostid, cand.parent, cand.hierarchy_level,
@@ -467,6 +520,16 @@ def compare(snap, prm: Params, cand, device=None) -> Dict[str, float]:
             prm.e["Spherical_overdensity_min_halo_factor"], prm.halo_min,
             prm.box)
         out["so_off_share"] = so_off_share(cand.props, M, R, field)
+    elif prm.inclusive in (1, 2) and ng > 0:
+        field = np.nonzero(np.asarray(hostid[1:ng + 1]) == -1)[0] + 1
+        if fof_gid is None:
+            fof_gid = top_of[pfof]
+        M, R = catalog.fof_so(
+            pos, mass, fof_gid, torch.as_tensor(field, device=dev),
+            prm.lnthr, prm.e["Spherical_overdensity_min_halo_factor"],
+            prm.min_size, prm.box)
+        out["so_off_share"] = so_off_share(cand.props, M, R, field)
+    del fof_gid
 
     if prm.unbind_all or prm.unbind_subs:
         if prm.unbind_all:
@@ -505,9 +568,11 @@ def vscale2_6d(vel, mass, labels: torch.Tensor, sel: torch.Tensor,
     return float(d2.sum() / m.sum()) * vfac ** 2
 
 
-def _fof6d_wrong(pos, vel, mass, part3, prog_tree, prm: Params) -> int:
-    """DM particles of a structure tree not inside one possible 6D group
-    (links inside one possible 3D group of halo_min or more)."""
+def _fof6d_labels(pos, vel, mass, part3, prm: Params):
+    """FOF6D's possible 6D groups (links inside one possible 3D group of
+    halo_min or more, the largest group's velocity scale): (a label per
+    point, -1 outside those 3D groups, or None where there are none;
+    the points inside them)."""
     lab3 = part3.possible
     big3 = groups.sizes_of(lab3) >= prm.halo_min
     vs2 = vscale2_6d(vel, mass, lab3, big3,
@@ -515,7 +580,7 @@ def _fof6d_wrong(pos, vel, mass, part3, prog_tree, prm: Params) -> int:
     b6 = prm.b3d * prm.e["Halo_6D_linking_length_factor"]
     sub = torch.nonzero(big3).squeeze(1)
     if sub.numel() == 0:
-        return int((prog_tree > 0).sum())
+        return None, big3
     sv = vel[sub].double()
     sl = lab3[sub]
 
@@ -527,4 +592,75 @@ def _fof6d_wrong(pos, vel, mass, part3, prog_tree, prm: Params) -> int:
     lab6 = torch.full((pos.shape[0],), -1, dtype=torch.int64,
                       device=pos.device)
     lab6[sub] = sub[part6.possible]
+    return lab6, big3
+
+
+def _fof6d_wrong(pos, vel, mass, part3, prog_tree, prm: Params) -> int:
+    """DM particles of a structure tree not inside one possible 6D group
+    of FOF6D (``_fof6d_labels``)."""
+    lab6, big3 = _fof6d_labels(pos, vel, mass, part3, prm)
+    if lab6 is None:
+        return int((prog_tree > 0).sum())
     return groups.subset_violations(prog_tree, lab6, big3)
+
+
+# A group's velocity scale in the program is a float64 sum of float32
+# products: the reference's float64 value can differ from it by a few
+# parts in 10^7.  Each scale gets the 3D sandwich's margin (groups.DELTA)
+# either way, so that rounding alone never fails a sound catalog: a pair
+# links for certain under the scale shrunk by it, possibly under the
+# scale grown by it.
+SCALE_MARGIN = groups.DELTA
+
+
+def dispersion2(vel, mass, labels: torch.Tensor, n1: int) -> torch.Tensor:
+    """(n1,) float64 mass-weighted velocity dispersion^2 of each label's
+    points about their mass-weighted mean velocity."""
+    v, m = vel.double(), mass.double()
+    msum = torch.clamp_min(torch.zeros(n1, dtype=torch.float64,
+                                       device=v.device).index_add_(
+        0, labels, m), 1e-300)
+    vm = torch.zeros(n1, 3, dtype=torch.float64, device=v.device
+                     ).index_add_(0, labels, v * m[:, None]) / msum[:, None]
+    d2 = ((v - vm[labels]) ** 2).sum(1) * m
+    return torch.zeros(n1, dtype=torch.float64, device=v.device
+                       ).index_add_(0, labels, d2) / msum
+
+
+def _fof6d_adaptive(pos, vel, mass, p3: torch.Tensor, prm: Params):
+    """FOF6DADAPTIVE's 6D groups of the catalog's 3D groups ``p3`` (> 0;
+    held to FOF by ``fof3d_wrong``): a pair links inside one 3D group g
+    when d^2 / b6^2 + |dv|^2 / s_g^2 <= 1, s_g^2 the group's own
+    mass-weighted velocity dispersion^2 times
+    Halo_6D_vel_linking_length_factor^2 (with SCALE_MARGIN).  Returns
+    (the points of the 3D groups, their 6D partition)."""
+    sub = torch.nonzero(p3 > 0).squeeze(1)
+    g = p3[sub]
+    n1 = int(g.max()) + 1 if sub.numel() else 1
+    s2 = torch.clamp_min(dispersion2(vel[sub], mass[sub], g, n1) *
+                         prm.e["Halo_6D_vel_linking_length_factor"] ** 2,
+                         1e-30)
+    sv = vel[sub].double()
+
+    def extra(i, j):
+        term = ((sv[i] - sv[j]) ** 2).sum(1) / s2[g[i]]
+        return term, g[i] == g[j], term * SCALE_MARGIN
+
+    return sub, groups.fof(pos[sub], prm.b3d *
+                           prm.e["Halo_6D_linking_length_factor"], prm.box,
+                           extra=extra)
+
+
+def _field_groups(own: torch.Tensor, tree: torch.Tensor, ng1: int
+                  ) -> torch.Tensor:
+    """(n,) the field structure whose pre-unbind group each point is in
+    (0: none): a tree's group is the reference group ``own`` (a label per
+    point, -1 none) of its members with the lowest label."""
+    n = own.shape[0]
+    sel = (tree > 0) & (own >= 0)
+    low = torch.full((ng1,), n, dtype=torch.int64, device=own.device
+                     ).scatter_reduce(0, tree[sel], own[sel], "amin")
+    tops = torch.nonzero(low < n).squeeze(1)
+    owner = torch.zeros(n + 1, dtype=torch.int64, device=own.device)
+    owner[low[tops]] = tops
+    return torch.where(own >= 0, owner[torch.clamp_min(own, 0)], 0)

@@ -50,21 +50,32 @@ def build(snap, prm: checks.Params) -> ControlCatalog:
     dev = pos.device
     n = pos.shape[0]
     ptype = None if snap.ptype is None else snap.ptype.long()
-    dmi = torch.nonzero(ptype == 1).squeeze(1) if (
-        prm.baryons and ptype is not None) else torch.arange(n, device=dev)
-    dpos, dvel, dmass = pos[dmi], vel[dmi], mass[dmi]
-    p3 = groups.fof(dpos, prm.b3d, prm.box)
-    g3 = groups.ids_by_size(p3.certain, prm.halo_min)
+    # the field search's particles: the dark matter where a baryon search
+    # runs, else every particle (no copy of the arrays)
+    dmi = None
+    dpos, dvel, dmass = pos, vel, mass
+    if prm.baryons and ptype is not None:
+        dmi = torch.nonzero(ptype == 1).squeeze(1)
+        dpos, dvel, dmass = pos[dmi], vel[dmi], mass[dmi]
+    g3 = groups.ids_by_size(groups.fof(dpos, prm.b3d, prm.box).certain,
+                            prm.halo_min)
     gid_dm = g3
     if prm.run6d:
         big = g3 > 0
-        vs2 = checks.vscale2_6d(dvel, dmass, g3, big,
-                                prm.e["Halo_6D_vel_linking_length_factor"])
+        vfac = prm.e["Halo_6D_vel_linking_length_factor"]
         sub = torch.nonzero(big).squeeze(1)
         sv, sl = dvel[sub].double(), g3[sub]
+        if prm.adaptive6d:
+            # each 3D group's own scale
+            vs2 = torch.clamp_min(checks.dispersion2(
+                dvel[sub], dmass[sub], sl, int(g3.max()) + 1) * vfac ** 2,
+                1e-30)[sl]
+        else:
+            vs2 = checks.vscale2_6d(dvel, dmass, g3, big, vfac)
 
         def extra(i, j):
-            return ((sv[i] - sv[j]) ** 2).sum(1) / vs2, sl[i] == sl[j]
+            scale = vs2[i] if prm.adaptive6d else vs2
+            return ((sv[i] - sv[j]) ** 2).sum(1) / scale, sl[i] == sl[j]
 
         p6 = groups.fof(dpos[sub], prm.b3d *
                         prm.e["Halo_6D_linking_length_factor"], prm.box,
@@ -72,8 +83,12 @@ def build(snap, prm: checks.Params) -> ControlCatalog:
         g6 = groups.ids_by_size(p6.certain, prm.halo_min)
         gid_dm = torch.zeros_like(g3)
         gid_dm[sub] = g6
-    pfof = torch.zeros(n, dtype=torch.int64, device=dev)
-    pfof[dmi] = gid_dm
+    pfof = gid_dm
+    if dmi is not None:
+        pfof = torch.zeros(n, dtype=torch.int64, device=dev)
+        pfof[dmi] = gid_dm
+    # the groups before the baryons join them: the FOF-particle SO's
+    pre = pfof.clone() if prm.inclusive in (1, 2) else None
     if prm.baryons and ptype is not None:
         bar = torch.nonzero(ptype != 1).squeeze(1)
         arg = checks.nearest_grouped_dm(
@@ -91,13 +106,20 @@ def build(snap, prm: checks.Params) -> ControlCatalog:
         if k in q:
             props[k] = q[k]
     props = {k: v.cpu().numpy() for k, v in props.items()}
-    if prm.inclusive == 3 and ng > 0:
+    if prm.inclusive in (1, 2, 3) and ng > 0:
         ft = torch.arange(1, ng + 1, device=dev)
-        M, R = catalog.field_so(
-            pos, mass, q, ft, prm.lnthr,
-            prm.e["Spherical_overdensity_search_factor"],
-            prm.e["Spherical_overdensity_min_halo_factor"], prm.halo_min,
-            prm.box)
+        if prm.inclusive == 3:
+            M, R = catalog.field_so(
+                pos, mass, q, ft, prm.lnthr,
+                prm.e["Spherical_overdensity_search_factor"],
+                prm.e["Spherical_overdensity_min_halo_factor"],
+                prm.halo_min, prm.box)
+        else:
+            # no unbind: the groups are the pre-unbind ones
+            M, R = catalog.fof_so(
+                pos, mass, pre, ft, prm.lnthr,
+                prm.e["Spherical_overdensity_min_halo_factor"],
+                prm.min_size, prm.box)
         M, R = M.cpu().numpy(), R.cpu().numpy()
         for j, (mk, rk) in enumerate(checks._SO):
             props[mk] = np.concatenate([[0.0], M[:, j]])

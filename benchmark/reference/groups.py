@@ -58,7 +58,9 @@ def fof(pos: torch.Tensor, b: float, box: float,
         budget: Optional[int] = None) -> Partition:
     """FOF of ``pos`` with linking length ``b`` in a periodic box;
     ``extra(i, j)`` adds a term to q (the 6D velocity term) and returns
-    (term, allowed) with ``allowed`` False where the pair may not link."""
+    (term, allowed) with ``allowed`` False where the pair may not link,
+    or (term, allowed, slack): q's rounding margin widened by ``slack``
+    on both sides (a term whose own scale carries a rounding margin)."""
     n = pos.shape[0]
     dev = pos.device
     cert = torch.arange(n, device=dev)
@@ -68,14 +70,17 @@ def fof(pos: torch.Tensor, b: float, box: float,
         keep = qi < rj
         qi, rj = qi[keep], rj[keep]
         q = dist2(pos[qi], pos[rj], box) / b2
+        slack = 0.0
         if extra is not None:
             near = q <= 1 + DELTA
             qi, rj, q = qi[near], rj[near], q[near]
-            term, allowed = extra(qi, rj)
+            term, allowed, *widen = extra(qi, rj)
             q = torch.where(allowed, q + term, torch.inf)
-        sure = q <= 1 - DELTA
+            if widen:
+                slack = widen[0]
+        sure = q + slack <= 1 - DELTA
         cert = union(cert, qi[sure], rj[sure])
-        maybe = (q > 1 - DELTA) & (q <= 1 + DELTA)
+        maybe = ~sure & (q - slack <= 1 + DELTA)
         if bool(maybe.any()):
             amb_i.append(qi[maybe])
             amb_j.append(rj[maybe])
