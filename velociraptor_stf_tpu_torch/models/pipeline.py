@@ -39,7 +39,7 @@ from ..ops import so as so_ops
 from ..utils import config as C
 from ..utils import units
 from ..utils.timing import span
-from ..utils.transfer import fetch_bulk
+from ..utils.transfer import fetch_bulk, stage_in
 
 
 @dataclass
@@ -64,18 +64,13 @@ class SearchResult:
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    return stage_in(x, device, torch.float32)
 
 
 def _as_ptype(ptype, device: torch.device) -> Optional[torch.Tensor]:
-    """Particle types as an int64 tensor on ``device`` (None stays None)."""
-    if ptype is None:
-        return None
-    if not isinstance(ptype, torch.Tensor):
-        ptype = torch.from_numpy(np.ascontiguousarray(ptype))
-    return ptype.to(device=device, dtype=torch.int64)
+    """Particle types as an int64 tensor on ``device`` (None stays None):
+    they cross at the caller's width and are widened there."""
+    return None if ptype is None else stage_in(ptype, device, torch.int64)
 
 
 def _scatter(values: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:

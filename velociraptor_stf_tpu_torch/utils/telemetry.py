@@ -49,6 +49,17 @@ catalog and per stage.  The keys, each with its reader:
   mesh_full_gathers / mesh_full_gathers::<what>
       whole-array fetches to the host (``utils/transfer.py``;
       tests/test_torch_collective_audit.py)
+  transfer_staged_bytes / transfer_staged_chunks
+      bytes and chunks of the bulk copies that crossed between host and
+      card through ``utils/transfer.py``'s pinned staging ring, either way
+      (on the ``to_device`` spans for the copies in)
+  transfer_direct_bytes
+      bytes of the bulk copies that took the direct ``.to(...)`` /
+      ``.cpu()``: on the CPU, below the ring's threshold, of a dtype it
+      does not take
+  transfer_pinned_bytes
+      the ring's page-locked bytes, counted once, when it is allocated
+      (all four: tests/test_torch_transfer_staging.py)
 """
 
 from __future__ import annotations
