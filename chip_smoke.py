@@ -1,15 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--n N] [--cli-n N] [--profile PATH]
+    python3 chip_smoke.py [--n N] [--cli-n N]
 
-``--profile`` adds a device-time table by operator and tables of
-synchronised spans of the field search (``fof_breakdown``), of the hydro
-path (``hydro_breakdown``: the association's cell sorts, window search,
-gathers, metric and reductions, the combined unbind, the per-type block)
-and of the substructure recursion (``subsub_breakdown``: the global
-density, the padded contexts, grid, R and fit, the subset search, the
-merger cores, the level-wide unbind).
+Per-stage and per-span times, waits and launches of a catalog come from
+the benchmark's traced run (``benchmark/run.py --trace 1``), not from
+this script.
 
 Builds the port's CUDA kernels from ``velociraptor_stf_tpu_torch/kernels/
 csrc`` and drives the port on the card, in phases:
@@ -73,14 +69,13 @@ csrc`` and drives the port on the card, in phases:
    stage times and the recursion's laps, structures searched and
    substructures found per level, cores promoted, launches, peak memory;
    both runs equal bit for bit, the hierarchy consistent, every member of
-   a top-level structure bound; in the first run every structure the
-   batched subset search (``search_subset_batch``) takes is searched again
-   by the per-structure ``search_subset`` on the card: ids and group
-   counts exactly equal; every structure searched must go through the
-   batched search (``subset_batched_structures``), with its batches and
-   in-reach pairs printed beside the ``subset`` and ``cores`` laps; every
-   structure of the batched core search (``search_cores_batch``) is
-   searched again by ``halo_core_search``: core ids and counts equal; then
+   a top-level structure bound; in the first run every structure of a
+   level's subset search (``search_subset_batch``) and core search
+   (``search_cores_batch``) is searched again alone, as a batch of one:
+   ids and counts exactly equal, so a structure's ids do not depend on
+   the structures batched with it; every structure searched must be so
+   checked, with the batches and pairs printed beside the ``subset`` and
+   ``cores`` laps; then
    three planted hosts with subhalos through find_structures on the card
    and on the CPU: equal ids and hierarchy, at least two substructures;
 10. the mesh path (``velociraptor_stf_tpu_torch/parallel``): find_structures
@@ -539,13 +534,10 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, ptxas, report):
     pms = wall_ms(torch, lambda: KF.detect_ref(dpts, col, colstart, ny,
                                                KF.f32(b2)))
     # what the launch takes besides: the index and the packed rows (each a
-    # second build), beside the block windows of the reference's layout
+    # second build)
     index_ms = wall_ms(torch, lambda: TF.column_index(ctx.cx, ctx.cr,
                                                       ctx.ncells))
     pack_ms = wall_ms(torch, packed)
-    TF.block_windows(ctx.cx, ctx.cr, ctx.ncells)
-    block_ms = wall_ms(torch, lambda: TF.block_windows(ctx.cx, ctx.cr,
-                                                       ctx.ncells))
     batch = 1 << 21
     tested = sum(int(KF.column_windows(dpts, col, colstart, ny, r0,
                                        min(r0 + batch, ctx.ns))[:, :, 1]
@@ -556,13 +548,12 @@ def check_kernels(torch, np, pos, vel, mass, opt, sass, ptxas, report):
     log(f"column index of {ctx.ns} rows ({cells} occupied cells, {columns} "
         f"occupied of {nx * ny} z-columns): {nbytes(col, colstart)} bytes "
         f"built in {index_ms:.3f} ms, packed rows {nbytes(dpts)} bytes in "
-        f"{pack_ms:.3f} ms; block windows of {R_BLOCK} rows build in "
-        f"{block_ms:.3f} ms")
+        f"{pack_ms:.3f} ms")
     # bytes: positions in, counts out
     fof_entry("fof_detect", 0, ms, pms, ctx, nbytes(ctx.pos, got), tested,
               index_build_ms=index_ms, index_bytes=nbytes(col, colstart),
               pack_ms=pack_ms, packed_bytes=nbytes(dpts),
-              block_windows_build_ms=block_ms, occupied_cells=cells,
+              occupied_cells=cells,
               occupied_columns=columns, columns=nx * ny)
     del dpts, got, want, emptied
 
@@ -1236,9 +1227,8 @@ def check_hydro_catalog(np, res, mass, vel, ptype, eratio: float) -> str:
 
 
 def hydro_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
-    """Phase 8: the hydro path at full width.  Returns (the options, the
-    types, the hydro fields, the kernels' launch counts over the second
-    run)."""
+    """Phase 8: the hydro path at full width.  Returns the kernels' launch
+    counts over the second run."""
     from velociraptor_stf_tpu_torch.io.synthetic import make_cosmo_mock
     from velociraptor_stf_tpu_torch.models.pipeline import find_structures
     from velociraptor_stf_tpu_torch.utils import telemetry
@@ -1318,7 +1308,7 @@ def hydro_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
             f"{int((want.pfof[cptype != 1] > 0).sum())} baryons in groups, "
             f"group ids equal to the kernels' run (plain run {cpu_s:.1f} s "
             "on the host)")
-        return opt, ptype, extras, counts
+        return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1406,10 +1396,11 @@ def planted_options(C, G):
 
 
 def batch_against_per_structure(torch, S, checked: list):
-    """Wrap ``S.search_subset_batch`` so that every structure it searches
-    is searched again by the per-structure ``S.search_subset``: ids and
-    group counts must be equal.  Appends (structures, group ids compared)
-    per call to ``checked``; returns the function that unwraps."""
+    """Wrap ``S.search_subset_batch`` so that every structure of a call is
+    searched again alone, as a batch of one (a copy of its entry): ids
+    and group counts must be equal, whatever the structures it was
+    batched with.  Appends (structures, group ids compared) per call to
+    ``checked``; returns the function that unwraps."""
     real = S.search_subset_batch
 
     def checking(opt, entries, pair_budget=None):
@@ -1417,14 +1408,15 @@ def batch_against_per_structure(torch, S, checked: list):
         ids = 0
         for e in entries:
             k = e["nsub"]
-            want, ng = S.search_subset(
-                opt, e["ppos"][:k], e["pvel"][:k], e["pmass"][:k],
-                e["ell"][:k], bounds=e["bounds"], npad=e["npad"])
-            if ng != e["ng_sub"] or not torch.equal(want, e["sub"]):
+            alone = dict(e)
+            real(opt, [alone], pair_budget)
+            if alone["ng_sub"] != e["ng_sub"] or \
+                    not torch.equal(alone["sub"], e["sub"]):
                 raise AssertionError(
-                    f"batched subset search: a structure of {k} rows has "
-                    f"{e['ng_sub']} groups, the per-structure search {ng}; "
-                    f"{int((want != e['sub']).sum())} ids differ")
+                    f"subset search: a structure of {k} rows has "
+                    f"{e['ng_sub']} groups in a batch of {len(entries)}, "
+                    f"{alone['ng_sub']} alone; "
+                    f"{int((alone['sub'] != e['sub']).sum())} ids differ")
             ids += k
         checked.append((len(entries), ids))
 
@@ -1436,8 +1428,8 @@ def batch_against_per_structure(torch, S, checked: list):
 
 
 def cores_against_per_structure(torch, S, checked: list):
-    """Wrap ``S.search_cores_batch`` so that every structure it searches
-    is searched again by the per-structure ``S.halo_core_search``: core
+    """Wrap ``S.search_cores_batch`` so that every structure of a call is
+    searched again alone, as a batch of one (a copy of its entry): core
     ids and core counts must be equal.  Appends (structures, rows,
     differing ids) per call to ``checked``; returns the function that
     unwraps."""
@@ -1448,15 +1440,12 @@ def cores_against_per_structure(torch, S, checked: list):
         rows = differ = 0
         for e, (core, nc) in zip(entries, got):
             k = e["nsub"]
-            want, nc_want = S.halo_core_search(
-                opt, e["ppos"][:k], e["pvel"][:k], e["pmass"][:k],
-                e["valid"][:k], e["sub"], sublevel=level,
-                bounds=e["bounds"])
+            (want, nc_want), = real(opt, [dict(e)], level, pair_budget)
             bad = int((want != core).sum())
             if nc != nc_want or bad:
                 raise AssertionError(
-                    f"batched core search: a structure of {k} rows has "
-                    f"{nc} cores, the per-structure search {nc_want}; "
+                    f"core search: a structure of {k} rows has {nc} cores "
+                    f"in a batch of {len(entries)}, {nc_want} alone; "
                     f"{bad} ids differ")
             rows += k
             differ += bad
@@ -1471,8 +1460,8 @@ def cores_against_per_structure(torch, S, checked: list):
 
 
 def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
-    """Phase 9: the substructure path at full width.  Returns (the
-    options, the kernels' launch counts over the last run)."""
+    """Phase 9: the substructure path at full width.  Returns the
+    kernels' launch counts over the last run."""
     from velociraptor_stf_tpu_torch.io.synthetic import (G_KMS,
                                                          planted_subhalos)
     from velociraptor_stf_tpu_torch.models import substructure
@@ -1492,8 +1481,8 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         telemetry.reset()
-        # the warm-up run holds the batched searches to the per-structure
-        # ones
+        # the warm-up run holds each structure's batched searches to its
+        # searches alone
         undo = [batch_against_per_structure(torch, substructure, checked),
                 cores_against_per_structure(torch, substructure,
                                             cores_checked)] \
@@ -1538,31 +1527,31 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     searched = sum(v for k, v in tele.items()
                    if k.startswith("subsub_level") and
                    k.endswith("_structures"))
-    nbatched = tele.get("subset_batched_structures", 0)
-    log(f"phase 9 subset search: {nbatched} of {searched} structures "
-        f"batched ({tele.get('subset_sequential_structures', 0)} "
-        f"per structure) in {tele.get('subset_batches', 0)} batches, "
+    with_cores = sum(v for k, v in tele.items()
+                     if k.startswith("subsub_level") and
+                     k.endswith("_structures") and
+                     int(k[len("subsub_level"):-len("_structures")]) <=
+                     opt.maxnlevelcoresearch) \
+        if opt.iHaloCoreSearch > 0 else 0
+    log(f"phase 9 subset search: {searched} structures in "
+        f"{tele.get('subset_batches', 0)} batches, "
         f"{tele.get('subset_batch_candidates', 0)} candidate slots, "
-        f"{tele.get('subset_batch_pairs', 0)} in-reach pairs; laps subset "
+        f"{tele.get('subset_batch_pairs', 0)} pairs tested; laps subset "
         f"{res.timings.get('subsub_subset', 0.0):.4f} s, cores "
         f"{res.timings.get('subsub_cores', 0.0):.4f} s; warm-up run: "
-        f"{sum(c[0] for c in checked)} structures ({sum(c[1] for c in checked)}"
-        f" rows) in {len(checked)} batched calls equal to the per-structure"
-        " search")
-    if nbatched != searched or not checked or \
-            sum(c[0] for c in checked) != searched:
-        raise AssertionError(f"substructure path: {nbatched} of {searched} "
-                             "structures took the batched subset search, "
+        f"{sum(c[0] for c in checked)} structures "
+        f"({sum(c[1] for c in checked)} rows) in {len(checked)} batched "
+        "calls equal to their searches alone")
+    if not checked or sum(c[0] for c in checked) != searched or \
+            (searched and not tele.get("subset_batches")):
+        raise AssertionError(f"substructure path: {searched} structures "
+                             "searched, "
                              f"{sum(c[0] for c in checked)} were checked")
-    ncb = tele.get("cores_batched_structures", 0)
-    log(f"phase 9 core search: {ncb} structures batched "
-        f"({tele.get('cores_sequential_structures', 0)} per structure); "
-        f"warm-up run: {sum(c[0] for c in cores_checked)} structures "
+    log(f"phase 9 core search: warm-up run: "
+        f"{sum(c[0] for c in cores_checked)} of {with_cores} structures "
         f"({sum(c[1] for c in cores_checked)} rows) in "
-        f"{len(cores_checked)} batched calls equal to the per-structure "
-        "core search")
-    if sum(c[0] for c in cores_checked) != \
-            tele.get("cores_batched_structures", 0):
+        f"{len(cores_checked)} batched calls equal to their searches alone")
+    if sum(c[0] for c in cores_checked) != with_cores:
         raise AssertionError("substructure path: the batched core search "
                              "was not checked on every structure")
     nsub = int((res.parent[1:] > 0).sum())
@@ -1607,7 +1596,7 @@ def subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n: int):
     log(f"phase 9 planted subhalos: {want.ngroups} groups, {nfound} "
         "substructures, ids, parent, hostid and level equal on the card "
         "and on the CPU")
-    return opt, counts
+    return counts
 
 
 MESH_SHARDS = 4             # phase 10's shards on one card
@@ -2211,246 +2200,6 @@ def examples_case(torch, np, dev, C, kernels, report) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def span_table(torch, targets, run, title: str, plain_ms: float,
-               path: str) -> None:
-    """A table of synchronised spans of one ``run()``: each of ``targets``
-    -- (owner, attribute name, label) -- is wrapped, for this one run, by
-    a clock that synchronises the card before and after it.  Times are
-    inclusive of the steps nested in a span (indented below it); "other"
-    is a span's time outside its named steps.  The synchronisation itself
-    lengthens the run, so the unwrapped time ``plain_ms`` is printed
-    beside the table's total."""
-    spans: dict = {}      # path of labels -> (calls, inclusive ms)
-    first: dict = {}      # path -> rank of its first entry
-    stack: list = []
-    wrapped = []
-
-    def wrap(owner, name, label):
-        fn = getattr(owner, name)
-
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            path_ = tuple(stack) + (label,)
-            first.setdefault(path_, len(first))
-            stack.append(label)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.synchronize()
-                stack.pop()
-                calls, total = spans.get(path_, (0, 0.0))
-                spans[path_] = (calls + 1,
-                                total + (time.perf_counter() - t0) * 1e3)
-
-        wrapped.append((owner, name, fn))
-        setattr(owner, name, timed)
-
-    for owner, name, label in targets:
-        wrap(owner, name, label)
-    try:
-        total = wall_ms(torch, run)
-    finally:
-        for owner, name, fn in reversed(wrapped):
-            setattr(owner, name, fn)
-    lines = [f"{title}: {total:.3f} ms with every span synchronised, "
-             f"{plain_ms:.3f} ms without; spans (calls, inclusive ms):"]
-    top = 0.0
-    for path_ in sorted(spans, key=lambda k: [first[k[:d + 1]]
-                                              for d in range(len(k))]):
-        calls, ms = spans[path_]
-        inner = sum(v[1] for k, v in spans.items()
-                    if len(k) == len(path_) + 1 and k[:-1] == path_)
-        other = f" (other {ms - inner:.3f})" if inner else ""
-        lines.append(f"{'  ' * len(path_)}{path_[-1]:<28s}{calls:4d} "
-                     f"{ms:10.3f}{other}")
-        if len(path_) == 1:
-            top += ms
-    lines.append(f"  {'outside every span':<28s}     {total - top:10.3f}")
-    for ln in lines:
-        log(ln)
-    with open(path, "a") as f:
-        f.write("\n".join(lines) + "\n")
-
-
-def fof_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
-    """The span table of one ``search_full_set`` (the "fof" stage): every
-    named step of ops/fof_sweep.py and models/halos.py."""
-    from velociraptor_stf_tpu_torch.models import halos
-    from velociraptor_stf_tpu_torch.ops import fof_sweep as TF
-
-    tpos, tvel, tmass = (torch.from_numpy(a).to(dev)
-                         for a in (pos, vel, mass))
-
-    def run():
-        halos.search_full_set(opt, tpos, tvel, tmass, BOXSIZE)
-
-    plain = wall_ms(torch, run)
-    targets = [(TF, name, name) for name in (
-        "build_fof_ctx", "_ghost_pass", "build_grid", "limit_columns",
-        "cell_coords", "_ctx_from_sorted", "column_index", "cell_windows",
-        "_fixpoint", "_renumber")]
-    targets += [(TF.SweepFof, name, f"SweepFof.{name}")
-                for name in ("subset", "linked_mask", "fof3d", "fof6d")]
-    targets += [(TF.K, name, f"kernels.{name}")
-                for name in ("pack", "detect", "sweep3d", "sweep6d")]
-    targets += [(torch, "argsort", "torch.argsort"),
-                (halos, "velocity_scales", "velocity_scales"),
-                (halos, "finish_6d", "finish_6d")]
-    span_table(torch, targets, run, "fof breakdown: search_full_set", plain,
-               path)
-
-
-def hydro_breakdown(torch, opt, pos, vel, mass, ptype, extras, dev,
-                    path: str) -> None:
-    """The span table of one hydro ``find_structures``: the association
-    (cell sorts, window search, pair batches, the metric, the two
-    reductions), the combined unbind and the per-type block."""
-    from velociraptor_stf_tpu_torch.models import baryons, pipeline
-    from velociraptor_stf_tpu_torch.models import properties as props
-    from velociraptor_stf_tpu_torch.models import unbind
-    from velociraptor_stf_tpu_torch.ops import fof
-
-    args = [torch.from_numpy(a).to(dev) for a in (pos, vel, mass)]
-    tptype = torch.from_numpy(ptype).to(dev)
-    tex = {k: torch.from_numpy(v).to(dev) for k, v in extras.items()}
-
-    def run():
-        pipeline.find_structures(opt, *args, boxsize=BOXSIZE, ptype=tptype,
-                                 extras=tex, device=dev)
-
-    plain = wall_ms(torch, run)
-    targets = [
-        (pipeline.halos, "search_full_set", "search_full_set"),
-        (unbind, "check_unbound_groups", "check_unbound_groups"),
-        (unbind, "compute_potential", "compute_potential"),
-        (unbind, "eject", "eject"),
-        (baryons, "search_baryons", "search_baryons"),
-        (baryons, "velocity_scale2", "velocity_scale2"),
-        (fof, "nearest_assign_points", "nearest_assign_points"),
-        (fof, "stencil_batches", "stencil_batches"),
-        (fof, "bin_particles", "bin_particles"),
-        (fof, "stencil_windows", "stencil_windows"),
-        (fof, "_gather", "_gather"),
-        (fof, "pair_d2", "pair_d2"),
-        (baryons.PhaseMetric, "__call__", "PhaseMetric"),
-        (fof, "_nearest_reduce", "_nearest_reduce"),
-        (props, "property_bundle", "property_bundle"),
-        (props, "_properties", "_properties"),
-        (props, "_pertype", "_pertype"),
-        (props, "_apertures", "_apertures"),
-        (props, "_rvmax", "_rvmax"),
-        (props, "_energies", "_energies"),
-        (pipeline, "_so_stage", "_so_stage")]
-    span_table(torch, targets, run, "hydro breakdown: find_structures",
-               plain, path)
-
-
-def subsub_breakdown(torch, opt, pos, vel, mass, dev, path: str) -> None:
-    """The span table of one substructure find_structures: the global
-    density and its leaf selection, the padded contexts, the grid, R and
-    the fit, the subset search with its edge passes, the merger cores and
-    the level-wide unbind."""
-    from velociraptor_stf_tpu_torch.models import bgfield, localfield
-    from velociraptor_stf_tpu_torch.models import pipeline, substructure
-    from velociraptor_stf_tpu_torch.models import unbind
-    from velociraptor_stf_tpu_torch.ops import fof, segments
-
-    args = [torch.from_numpy(a).to(dev) for a in (pos, vel, mass)]
-
-    def run():
-        pipeline.find_structures(opt, *args, boxsize=BOXSIZE, device=dev)
-
-    plain = wall_ms(torch, run)
-    S = substructure
-    targets = [
-        (pipeline.halos, "search_full_set", "search_full_set"),
-        (unbind, "check_unbound_groups", "check_unbound_groups"),
-        (S, "search_sub_sub", "search_sub_sub"),
-        (S, "_global_density", "_global_density"),
-        (localfield, "velocity_density", "velocity_density"),
-        (localfield, "_leaf_densities", "_leaf_densities"),
-        (localfield, "median_partition", "median_partition (leaves)"),
-        (segments, "smallest_k", "smallest_k"),
-        (S, "_prep_level", "_prep_level"),
-        (S, "_outliers_level", "_outliers_level"),
-        (S, "_ratios", "_ratios"),
-        (bgfield, "background_grid", "background_grid"),
-        (bgfield, "denv_ratio", "denv_ratio"),
-        (bgfield, "distribution", "distribution"),
-        (bgfield, "refine", "refine"),
-        (bgfield, "_skewgauss_fit", "_skewgauss_fit (host)"),
-        (S, "search_level_subsets", "search_level_subsets"),
-        (S, "search_subset_batch", "search_subset_batch"),
-        (fof, "segmented_cells", "segmented_cells"),
-        (S, "_subset_batch", "_subset_batch"),
-        (fof.SegmentedCells, "pairs", "in-reach pairs"),
-        (S, "_merge_targets", "_merge_targets (host)"),
-        (S, "search_subset", "search_subset"),
-        (fof, "build_edges", "build_edges"),
-        (fof, "fof_labels_from_edges", "fof_labels_from_edges"),
-        (fof, "attach_rounds", "attach_rounds"),
-        (S, "merge_linked_groups", "merge_linked_groups"),
-        (S, "significance_filter", "significance_filter"),
-        (S, "search_level_cores", "search_level_cores"),
-        (S, "search_cores_batch", "search_cores_batch"),
-        (S, "_cores_batch", "_cores_batch"),
-        (S, "_phase_tensor_growth_batch", "_phase_tensor_growth_batch"),
-        (S, "_cores_and_merges", "_cores_and_merges"),
-        (S, "halo_core_search", "halo_core_search"),
-        (S, "_phase_tensor_growth", "_phase_tensor_growth"),
-        (S, "_unbind_level", "_unbind_level"),
-        (pipeline.props_mod, "property_bundle", "property_bundle"),
-        (pipeline, "_so_stage", "_so_stage")]
-    span_table(torch, targets, run, "subsub breakdown: find_structures",
-               plain, path)
-
-
-def profile_run(torch, opt, pos, vel, mass, dev, path: str) -> None:
-    """One more find_structures run under torch.profiler: device time by
-    operator (table to ``path``), the four kernels' share, and the
-    device's idle share of the wall time, for the whole run and for the
-    fof + unbind stages alone."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from velociraptor_stf_tpu_torch.models.pipeline import (find_structures,
-                                                           search_and_unbind)
-
-    # inputs already on the card: the window holds the timed stages
-    pos, vel, mass = (torch.from_numpy(a).to(dev) for a in (pos, vel, mass))
-    for name, run in (("find_structures", find_structures),
-                      ("search_and_unbind", search_and_unbind)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = run(opt, pos, vel, mass, boxsize=BOXSIZE, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        table = events.table(sort_by="self_device_time_total", row_limit=40)
-        with open(path, "a") as f:
-            f.write(f"{name}: timings {json.dumps(res.timings)} wall "
-                    f"{wall:.6f} s\n{table}\n")
-        # device-side events only (kernels, copies); the profiler's own
-        # buffer requests are not work
-        busy = {}
-        for e in events:
-            t = getattr(e, "self_device_time_total", 0.0)
-            if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA \
-                    and "Activity Buffer" not in e.key:
-                busy[e.key] = t / 1e3
-        total = sum(busy.values())
-        ours = {k: v for k, v in busy.items() if "_kernel" in k and
-                any(w in k for w in ("detect", "sweep3d", "sweep6d",
-                                     "potential"))}
-        log(f"profile {name}: wall {wall * 1e3:.3f} ms, device busy "
-            f"{total:.3f} ms (idle share {1 - total / (wall * 1e3):.4f}), "
-            f"the four kernels {json.dumps(ours)}; table in {path}")
-        for k, v in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
-            log(f"profile {name}: {v:12.3f} ms  {k[:100]}")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=256 ** 3,
@@ -2458,12 +2207,6 @@ def main() -> int:
     ap.add_argument("--cli-n", type=int, default=128 ** 3,
                     help="particles of the CLI phase's snapshot "
                     "(default 128^3)")
-    ap.add_argument("--profile", metavar="PATH",
-                    help="after the checks, profile one more find_structures "
-                    "and search_and_unbind run and append the device-time "
-                    "tables by operator and the span tables of the field "
-                    "search, of the hydro path and of the substructure "
-                    "recursion to PATH")
     args = ap.parse_args()
 
     import torch
@@ -2601,16 +2344,13 @@ def main() -> int:
         f"rel {med:.3g}, p99 {p99:.3g}; {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    hopt, ptype, extras, hydro_counts = hydro_case(torch, np, dev, C,
-                                                   kernels, pos, vel, mass,
-                                                   n)
+    hydro_counts = hydro_case(torch, np, dev, C, kernels, pos, vel, mass, n)
     for e in report:
         e["launches_hydro"] = hydro_counts[e["name"]]
     log(f"phase 8 hydro path: ok in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    sopt, sub_counts = subsub_case(torch, np, dev, C, kernels, pos, vel,
-                                   mass, n)
+    sub_counts = subsub_case(torch, np, dev, C, kernels, pos, vel, mass, n)
     for e in report:
         e["launches_subsub"] = sub_counts[e["name"]]
     log(f"phase 9 substructure path: ok in {time.perf_counter() - t0:.1f} s")
@@ -2624,18 +2364,6 @@ def main() -> int:
     t0 = time.perf_counter()
     examples_case(torch, np, dev, C, kernels, report)
     log(f"phase 11 example configs: ok in {time.perf_counter() - t0:.1f} s")
-    if args.profile:
-        tmp = Path(tempfile.mkdtemp(prefix="vr_smoke_"))
-        try:
-            popt = slice_options(n, C, BOXSIZE,
-                                 write_slice_config(tmp / "slice.cfg"))
-            profile_run(torch, popt, pos, vel, mass, dev, args.profile)
-            fof_breakdown(torch, popt, pos, vel, mass, dev, args.profile)
-            hydro_breakdown(torch, hopt, pos, vel, mass, ptype, extras, dev,
-                            args.profile)
-            subsub_breakdown(torch, sopt, pos, vel, mass, dev, args.profile)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
     log(f"gpu: {card}")
     log(json.dumps({"kernels": report}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """The port's merger-core search (velociraptor_stf_tpu_torch/models/
-substructure.py: ``halo_core_search``, ``_phase_tensor_growth``) and the
-two host phase merges against the JAX package's: core ids exactly equal
-on tests/test_cores.py's two-core mock, the phase-tensor growth against
-the float64 oracle as tests/test_oracles.py:178 holds the JAX package to
-it, and the merges on tests/test_merging.py's inputs with
+substructure.py: ``search_cores_batch`` and ``_phase_tensor_growth_batch``
+of one structure) and the two host phase merges against the JAX
+package's (``halo_core_search``, ``_phase_tensor_growth``): core ids
+exactly equal on tests/test_cores.py's two-core mock, the phase-tensor
+growth against the float64 oracle as tests/test_oracles.py:178 holds the
+JAX package to it, and the merges on tests/test_merging.py's inputs with
 ``coresubmergemindist`` > 0.
 """
 
@@ -26,6 +27,19 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _alone(opt, pos, vel, mass, valid, sub, level=1):
+    """``search_cores_batch`` of one structure over its rows' extent (the
+    grid the JAX search takes without bounds): (core ids, ncores)."""
+    p = _t(pos)
+    b = p.double()
+    e = {"ppos": p, "pvel": _t(vel), "pmass": _t(mass), "valid": _t(valid),
+         "sub": _t(sub).long(), "nsub": len(pos), "npad": len(pos),
+         "bounds": (b.amin(0).numpy(), b.amax(0).numpy())}
+    (core, nc), = TS.search_cores_batch(convert.options(opt), [e], level)
+    assert core.dtype == torch.int64
+    return core, nc
 
 
 def _core_opts(**over):
@@ -55,7 +69,7 @@ def test_halo_core_search_matches_reference(case):
     over, level = {}, 1
     if case == "tagged":            # particles of a substructure stay out
         sub[member2 & (np.arange(n) % 3 == 0)] = 1
-    elif case == "rebuild":         # a growing length: per-loop builds
+    elif case == "rebuild":         # a growing length
         over = {"halocorexfaciter": 1.05, "halocorenumloops": 3}
     elif case == "no_growth":
         over = {"iPhaseCoreGrowth": 0}
@@ -65,9 +79,7 @@ def test_halo_core_search_matches_reference(case):
     valid = np.ones(n, bool)
     want, nc_want = JS.halo_core_search(opt, pos, vel, mass, valid, sub,
                                         sublevel=level)
-    got, nc = TS.halo_core_search(convert.options(opt), _t(pos), _t(vel),
-                                  _t(mass), _t(valid), _t(sub),
-                                  sublevel=level)
+    got, nc = _alone(opt, pos, vel, mass, valid, sub, level)
     assert nc == nc_want
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if case == "merger":
@@ -87,9 +99,7 @@ def test_single_core_null():
     valid = np.ones(n, bool)
     want, nc_want = JS.halo_core_search(opt, pos, vel, mass, valid,
                                         np.zeros(n, np.int32))
-    got, nc = TS.halo_core_search(convert.options(opt), _t(pos), _t(vel),
-                                  _t(mass), _t(valid),
-                                  torch.zeros(n, dtype=torch.int64))
+    got, nc = _alone(opt, pos, vel, mass, valid, np.zeros(n, np.int32))
     assert nc == nc_want
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -120,8 +130,10 @@ def test_phase_tensor_growth_matches_oracle_and_reference():
     n = len(pos)
     valid = np.ones(n, bool)
     sub = np.zeros(n, np.int32)
-    got = TS._phase_tensor_growth(_t(pos), _t(vel), _t(mass), _t(valid),
-                                  _t(sub), _t(core0), 2, iters=4).numpy()
+    got = TS._phase_tensor_growth_batch(
+        _t(pos), _t(vel), _t(mass), _t(valid), _t(sub).long(),
+        _t(core0).long(), torch.zeros(n, dtype=torch.int64),
+        torch.tensor([2]), 2, 3, iters=4).numpy()
     want = core_growth_oracle(pos, vel, mass, valid, sub, core0, 2, iters=4)
     np.testing.assert_array_equal(got[:nseed], want[:nseed])
     assert (got != want).mean() < 0.01

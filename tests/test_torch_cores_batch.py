@@ -1,9 +1,10 @@
 """The port's batched merger-core search (velociraptor_stf_tpu_torch/
 models/substructure.py: ``search_level_cores``, ``search_cores_batch``,
-``_phase_tensor_growth_batch``) against its per-structure search
-(``halo_core_search`` inside ``_cores_and_merges``): core ids, core
-counts, the substructure ids after promotion and the host merges, and
-``subsub_cores_promoted``, all exactly equal.
+``_phase_tensor_growth_batch``) against the JAX package's per-structure
+search (``halo_core_search``): core ids and core counts exactly equal;
+the substructure ids after promotion and the host merges
+(``_cores_and_merges``), and ``subsub_cores_promoted``, equal to those of
+the JAX cores.
 
 The level holds tests/test_cores.py's merger mocks of several sizes,
 some with substructure ids already set, a relaxed halo and small cold
@@ -14,9 +15,9 @@ one whose cores the ``minsize`` break decides (the fixture checks each).
 The cases: with and without the host merges (``coresubmergemindist``),
 level 2, no phase-tensor growth, options under which ``minsize`` grows
 fast, a pair budget that splits the level into batches;
-``Halo_core_loop_ellx_fac`` > 1 takes the per-structure route; the two
-telemetry counters; the mesh route; host waits that do not grow with the
-number of structures.
+``Halo_core_loop_ellx_fac`` > 1 (a growing length) in the batch too; no
+search past ``maxnlevelcoresearch`` or with cores off; the mesh route;
+host waits that do not grow with the number of structures.
 """
 
 import copy
@@ -26,21 +27,23 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from velociraptor_stf_tpu.models import substructure as JS
+from velociraptor_stf_tpu.ops import fof as jfof
+from velociraptor_stf_tpu.utils import config as C
+
+from velociraptor_stf_tpu_torch import convert
 from velociraptor_stf_tpu_torch.models import substructure as TS
-from velociraptor_stf_tpu_torch.ops import fof
 from velociraptor_stf_tpu_torch.parallel.distributed_substructure import \
     distributed_structure_search
 from velociraptor_stf_tpu_torch.parallel.mesh import make_mesh
-from velociraptor_stf_tpu_torch.utils import config as C
 from velociraptor_stf_tpu_torch.utils import telemetry
 
 from test_cores import G, merger_mock
 from torch_threads import one_torch_thread  # noqa: F401
 
 
-def _opts(**over):
-    """tests/test_cores.py's sample-config core options, as the port
-    holds them."""
+def _jopts(**over):
+    """tests/test_cores.py's sample-config core options."""
     opt = C.Options()
     opt.ellphys, opt.ellxscale = 0.2, 0.5
     opt.iHaloCoreSearch = 2
@@ -55,6 +58,11 @@ def _opts(**over):
     for k, v in over.items():
         setattr(opt, k, v)
     return opt
+
+
+def _opts(**over):
+    """``_jopts`` as the port holds them."""
+    return convert.options(_jopts(**over))
 
 
 def _entry(g, pos, vel, mass, tagged=None):
@@ -74,27 +82,34 @@ def _entry(g, pos, vel, mass, tagged=None):
             "sub": sub, "ng_sub": int(tagged is not None)}
 
 
-def _loops(opt, e, level=1):
-    """(core groups found in each loop, ncores) of the per-structure
+def _jax_alone(jopt, e, level=1):
+    """The JAX package's ``halo_core_search`` of ``e`` over its bounds:
+    (core ids, ncores)."""
+    n = e["nsub"]
+    core, nc = JS.halo_core_search(
+        jopt, *(e[k][:n].numpy() for k in ("ppos", "pvel", "pmass", "valid")),
+        e["sub"].numpy().astype(np.int32), sublevel=level,
+        bounds=e["bounds"])
+    return np.asarray(core), nc
+
+
+def _loops(jopt, e, level=1):
+    """(core groups found in each loop, ncores) of the JAX per-structure
     search of ``e``: the loop ran as many times as groups were counted,
     and its last count is 0 where it broke for want of a core."""
     found = []
-    real = fof.renumber_by_size
+    real = jfof.renumber_by_size
 
     def record(*a, **k):
         out = real(*a, **k)
-        found.append(out[1])
+        found.append(int(out[1]))
         return out
 
-    fof.renumber_by_size = record
+    jfof.renumber_by_size = record
     try:
-        n = e["nsub"]
-        _, nc = TS.halo_core_search(opt, e["ppos"][:n], e["pvel"][:n],
-                                    e["pmass"][:n], e["valid"][:n],
-                                    e["sub"], sublevel=level,
-                                    bounds=e["bounds"])
+        _, nc = _jax_alone(jopt, e, level)
     finally:
-        fof.renumber_by_size = real
+        jfof.renumber_by_size = real
     return found, nc
 
 
@@ -148,8 +163,7 @@ _MINSIZE = {"MinSize": 10, "halocorenumfaciter": 2.0, "iPhaseCoreGrowth": 0}
 
 
 def test_the_level_holds_every_kind_of_structure(level):
-    opt = _opts()
-    runs = [_loops(opt, e) for e in level]
+    runs = [_loops(_jopts(), e) for e in level]
     assert any(nc == 0 for _, nc in runs)                     # no 2nd core
     assert any(nc >= 3 for _, nc in runs)
     assert any(f[-1] == 0 and len(f) < 8 for f, _ in runs)    # no core
@@ -157,18 +171,19 @@ def test_the_level_holds_every_kind_of_structure(level):
     assert any(len(f) == 8 for f, _ in runs)
     assert any(e["ng_sub"] > 0 for e in level)
     assert runs[-2][0][0] == 2 and runs[-2][1] == 2
-    core, nc = TS.halo_core_search(_opts(), level[-2]["ppos"],
-                                   level[-2]["pvel"], level[-2]["pmass"],
-                                   level[-2]["valid"], level[-2]["sub"])
+    (core, nc), = TS.search_cores_batch(_opts(), [dict(level[-2])], 1)
     assert nc == 2 and torch.equal(core, torch.arange(120) // 60 + 1)
-    found, nc = _loops(_opts(**_MINSIZE), level[-1])
+    found, nc = _loops(_jopts(**_MINSIZE), level[-1])
     assert nc == 2 and len(found) == 2 and found[-1] > 0
     assert len({e["nsub"] for e in level}) >= 6
 
 
-def _per_structure(opt, entries, level_no):
-    for e in entries:
-        TS._cores_and_merges(opt, e, level_no, True)
+def _jax_cores_and_merges(opt, entries, level_no, want):
+    """Each structure's promotion and host merges from the JAX cores
+    ``want`` (``_jax_alone``'s)."""
+    for e, (core, nc) in zip(entries, want):
+        TS._cores_and_merges(opt, e, level_no,
+                             (torch.tensor(core, dtype=torch.int64), nc))
     return entries
 
 
@@ -186,10 +201,9 @@ def test_batched_cores_equal_the_per_structure_search(level, case):
         over = _MINSIZE
     elif case == "split":
         budget = 1 << 17
-    opt = _opts(**over)
-    want = [TS.halo_core_search(opt, e["ppos"], e["pvel"], e["pmass"],
-                                e["valid"], e["sub"], sublevel=level_no,
-                                bounds=e["bounds"]) for e in level]
+    jopt = _jopts(**over)
+    opt = convert.options(jopt)
+    want = [_jax_alone(jopt, e, level_no) for e in level]
     batches = []
     real = TS._cores_batch
 
@@ -206,50 +220,64 @@ def test_batched_cores_equal_the_per_structure_search(level, case):
     assert len(batches) == 1 if budget is None else len(batches) > 1
     for (gc, gn), (wc, wn) in zip(got, want):
         assert gn == wn
-        assert torch.equal(gc, wc)
+        assert gc.dtype == torch.int64
+        np.testing.assert_array_equal(gc.numpy(), wc)
     assert sum(wn >= 2 for _, wn in want) >= 2
 
-    seq = _per_structure(opt, copy.deepcopy(level), level_no)
+    telemetry.reset()
+    seq = _jax_cores_and_merges(opt, copy.deepcopy(level), level_no, want)
+    promoted = telemetry.snapshot()["subsub_cores_promoted"]
     telemetry.reset()
     bat = copy.deepcopy(level)
     TS.search_level_cores(opt, bat, level_no, True)
-    snap = telemetry.snapshot()
-    telemetry.reset()
-    _per_structure(opt, copy.deepcopy(level), level_no)
-    assert snap["subsub_cores_promoted"] == \
-        telemetry.snapshot()["subsub_cores_promoted"] > 0
-    assert snap["cores_batched_structures"] == len(level)
-    assert "cores_sequential_structures" not in snap
+    assert telemetry.snapshot()["subsub_cores_promoted"] == promoted > 0
     for a, b in zip(seq, bat):
         assert a["ng_sub"] == b["ng_sub"]
         assert torch.equal(a["sub"], b["sub"])
 
 
 def test_a_growing_length_takes_the_per_structure_route(level):
-    """``Halo_core_loop_ellx_fac`` > 1: no pair table serves every loop,
-    so each structure is searched alone, as before."""
-    opt = _opts(halocorexfaciter=1.05, halocorenumloops=3)
-    assert not TS._batchable_cores(opt)
-    with pytest.raises(ValueError):
-        TS.search_cores_batch(opt, level[:1], 1)
-    seq = _per_structure(opt, copy.deepcopy(level[:3]), 1)
-    telemetry.reset()
-    got = copy.deepcopy(level[:3])
-    TS.search_level_cores(opt, got, 1, True)
-    snap = telemetry.snapshot()
-    assert snap["cores_sequential_structures"] == 3
-    assert "cores_batched_structures" not in snap
-    for a, b in zip(seq, got):
+    """``Halo_core_loop_ellx_fac`` > 1: one pair table at the last loop's
+    length serves every loop, each cutting by its own, so the structures
+    go through the batch and give the JAX per-structure search's ids."""
+    jopt = _jopts(halocorexfaciter=1.05, halocorenumloops=3)
+    opt = convert.options(jopt)
+    want = [_jax_alone(jopt, e) for e in level[:3]]
+    batches = []
+    real = TS._cores_batch
+
+    def record(*a):
+        batches.append(a[-4:-2])
+        return real(*a)
+
+    TS._cores_batch = record
+    try:
+        got = TS.search_cores_batch(opt, [dict(e) for e in level[:3]], 1)
+    finally:
+        TS._cores_batch = real
+    assert batches == [(0, 3)]
+    for (gc, gn), (wc, wn) in zip(got, want):
+        assert gn == wn
+        np.testing.assert_array_equal(gc.numpy(), wc)
+    assert any(wn >= 2 for _, wn in want)
+    seq = _jax_cores_and_merges(opt, copy.deepcopy(level[:3]), 1, want)
+    bat = copy.deepcopy(level[:3])
+    TS.search_level_cores(opt, bat, 1, True)
+    for a, b in zip(seq, bat):
         assert a["ng_sub"] == b["ng_sub"]
         assert torch.equal(a["sub"], b["sub"])
     # no core search beyond maxnlevelcoresearch, or with cores off
-    telemetry.reset()
-    TS.search_level_cores(_opts(), copy.deepcopy(level[:2]),
-                          _opts().maxnlevelcoresearch + 1, True)
-    TS.search_level_cores(_opts(), copy.deepcopy(level[:2]), 1, False)
-    snap = telemetry.snapshot()
-    assert "cores_batched_structures" not in snap and \
-        "cores_sequential_structures" not in snap
+    TS._cores_batch = record
+    try:
+        for lv, on in ((_opts().maxnlevelcoresearch + 1, True), (1, False)):
+            ents = copy.deepcopy(level[:2])
+            TS.search_level_cores(_opts(), ents, lv, on)
+            for a, b in zip(ents, level[:2]):
+                assert a["ng_sub"] == b["ng_sub"]
+                assert torch.equal(a["sub"], b["sub"])
+    finally:
+        TS._cores_batch = real
+    assert batches == [(0, 3)]
 
 
 def test_the_mesh_route_batches_each_shards_structures(level):
@@ -264,12 +292,25 @@ def test_the_mesh_route_batches_each_shards_structures(level):
         e["ell"] = torch.zeros(e["nsub"])     # no outliers: no subsets
         ents.append(e)
     one = copy.deepcopy(ents)
-    TS.search_level_subsets(opt, one)
+    TS.search_subset_batch(opt, one)
     TS.search_level_cores(opt, one, 1, True)
-    telemetry.reset()
     dealt = copy.deepcopy(ents)
-    distributed_structure_search(opt, dealt, 1, True, make_mesh(4, "cpu"))
-    assert telemetry.snapshot()["cores_batched_structures"] == len(level)
+    batches = []
+    real = TS._cores_batch
+
+    def record(*a):
+        batches.append(a[-4:-2])
+        return real(*a)
+
+    TS._cores_batch = record
+    try:
+        distributed_structure_search(opt, dealt, 1, True,
+                                     make_mesh(4, "cpu"))
+    finally:
+        TS._cores_batch = real
+    # each loaded shard one batch, over all its structures
+    assert len(batches) <= 4 and \
+        sum(k1 - k0 for k0, k1 in batches) == len(level)
     assert sum(e["ng_sub"] for e in one) > 0
     for a, b in zip(one, dealt):
         assert a["ng_sub"] == b["ng_sub"]
@@ -297,7 +338,7 @@ class _HostSyncs(TorchFunctionMode):
 def test_host_waits_do_not_grow_with_the_structures(level):
     """The level thrice in one batch waits for the host as often as the
     level once (the label fixed points run over the union), and far less
-    often than the per-structure search."""
+    often than its structures each searched as a batch of one."""
     opt = _opts()
     with _HostSyncs() as once:
         TS.search_cores_batch(opt, [dict(e) for e in level], 1)
@@ -305,6 +346,5 @@ def test_host_waits_do_not_grow_with_the_structures(level):
         TS.search_cores_batch(opt, [dict(e) for e in level * 3], 1)
     with _HostSyncs() as alone:
         for e in level:
-            TS.halo_core_search(opt, e["ppos"], e["pvel"], e["pmass"],
-                                e["valid"], e["sub"], bounds=e["bounds"])
+            TS.search_cores_batch(opt, [dict(e)], 1)
     assert thrice.n == once.n < alone.n / 2

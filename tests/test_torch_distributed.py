@@ -374,8 +374,7 @@ def test_distributed_velocity_density_matches_single_device():
 def test_distributed_structure_search_matches_single_device():
     """Three structures of one pad size dealt whole to 8 shards (five
     shards idle): each shard's subset and core searches give the ids of
-    the per-structure searches on one device and of the JAX package's
-    batched search."""
+    the searches on one device and of the JAX package's batched search."""
     opt = C.Options()
     opt.ellphys, opt.ellxscale = 0.2, 0.25
     opt.iiterflag = 1
@@ -405,12 +404,8 @@ def test_distributed_structure_search_matches_single_device():
                                       ppos_np.max(0).astype(np.float64))}
         one.append(dict(e))
         dealt.append(dict(e))
-    for e in one:
-        n = e["nsub"]
-        e["sub"], e["ng_sub"] = TS.search_subset(
-            topt, e["ppos"][:n], e["pvel"][:n], e["pmass"][:n],
-            e["ell"][:n], bounds=e["bounds"], npad=e["npad"])
-        TS._cores_and_merges(topt, e, 1, False)
+    TS.search_subset_batch(topt, one)
+    TS.search_level_cores(topt, one, 1, False)
     distributed_structure_search(topt, dealt, 1, False, make_mesh(8, "cpu"))
     JS._search_subset_batch(opt, jentries)
     assert sum(e["ng_sub"] for e in one) > 0

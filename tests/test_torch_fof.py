@@ -77,9 +77,7 @@ def _port_search(opt, pos, vel, mass, boxsize):
 
 
 def test_context_matches_reference():
-    """Ghosts, cell sort and slot maps equal the JAX ``build_fof_ctx``; the
-    port's windows, built at the reference's R = 512, CH = 1024, are the
-    reference's coverage windows bit for bit."""
+    """Ghosts, cell sort and slot maps equal the JAX ``build_fof_ctx``."""
     pos, vel, _, boxsize = _mock()
     reach = 0.2 * boxsize / len(pos) ** (1 / 3)
     jctx, jgrid = PF.build_fof_ctx(jnp.asarray(pos), jnp.asarray(vel),
@@ -105,40 +103,42 @@ def test_context_matches_reference():
     np.testing.assert_array_equal(
         tctx.src[tctx.grs].numpy(), tctx.src[tctx.gslots].numpy())
 
-    win = TF.block_windows(_t(np.asarray(jctx.ccx)).long(),
-                           _t(np.asarray(jctx.ccr)).long(), jgrid.ncells,
-                           rows=PF.R_BLOCK, chunk=PF.CH)
-    nblocks = jctx.ns_pad // PF.R_BLOCK
-    jwin = np.asarray(jctx.ranges)[:nblocks, :18].reshape(nblocks, 9, 2)
-    np.testing.assert_array_equal(win.numpy(), jwin)
-
 
 def test_windows_are_disjoint_supersets():
-    """Exact-slot block windows: disjoint per block, and every neighbour
-    of every row lies in its block's windows."""
+    """Cell windows: disjoint per cell, and every neighbour of every row
+    lies in its cell's windows."""
     pos, _, _, boxsize = _clustered()
     reach = 0.2 * boxsize / len(pos) ** (1 / 3)
     ctx, _ = TF.build_fof_ctx(_t(pos), boxsize, reach)
-    w = TF.block_windows(ctx.cx, ctx.cr, ctx.ncells).long().numpy()
-    cover = np.zeros((w.shape[0], ctx.ns), np.int32)
-    for b in range(w.shape[0]):
-        for s, c in w[b]:
-            cover[b, s:s + c] += 1
-    assert cover.max() == 1
+    cell, win = TF.cell_windows(ctx.cx, ctx.cr, ctx.ncells)
+    cell, w = cell.long().numpy(), win.long().numpy()
+    # each cell's windows sorted by start: disjoint when each ends before
+    # the next starts
+    start = np.where(w[:, :, 1] > 0, w[:, :, 0], ctx.ns)
+    by = np.argsort(start, axis=1, kind="stable")
+    start = np.take_along_axis(start, by, 1)
+    end = start + np.take_along_axis(w[:, :, 1], by, 1)
+    assert (end[:, :-1] <= start[:, 1:]).all()
+    # the slot j in cell c's windows: the last window of c starting at or
+    # before j holds it (cells ascending, starts ascending in each cell)
+    ncell = w.shape[0]
+    key = (np.arange(ncell)[:, None] * (ctx.ns + 1) + start).ravel()
     p = ctx.pos.numpy().T
     pairs = cKDTree(p).query_pairs(reach, output_type="ndarray")
-    from velociraptor_stf_tpu_torch.kernels import R_BLOCK
+    assert len(pairs) > 0
     for i, j in ((pairs[:, 0], pairs[:, 1]), (pairs[:, 1], pairs[:, 0])):
-        assert cover[i // R_BLOCK, j].all()
+        k = np.searchsorted(key, cell[i] * (ctx.ns + 1) + j, "right") - 1
+        assert (k // 9 == cell[i]).all()
+        assert (j < end.ravel()[k]).all()
 
 
 def test_each_context_builds_only_its_windows_once(monkeypatch):
     """The field search builds the column index once, for detect on the
     full context, and cell windows once for each subset its fixed points
     sweep (the linked subset, then the 6D subset), however many sweeps
-    run; it builds no block windows."""
+    run."""
     calls, sweeps = [], []
-    for name in ("block_windows", "column_index", "cell_windows"):
+    for name in ("column_index", "cell_windows"):
         fn = getattr(TF, name)
         monkeypatch.setattr(TF, name, lambda cx, *a, _fn=fn, _name=name: (
             calls.append((_name, int(cx.shape[0]))) or _fn(cx, *a)))

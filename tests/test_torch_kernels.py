@@ -443,8 +443,8 @@ def test_sass_per_pair_reads_the_innermost_scan(monkeypatch):
 def test_wrappers_reject_bad_arguments():
     ctx, ll = _cloud(n=600)
     lab = torch.arange(ctx.ns, dtype=torch.int32)
-    bw = TF.block_windows(ctx.cx, ctx.cr, ctx.ncells)
     dpts, col, colstart, ny = _detect_args(ctx)
+    cell, win = ctx.sweep_windows
     with pytest.raises(TypeError):
         KF.detect(dpts.double(), col, colstart, ny, ll * ll)
     with pytest.raises(ValueError):                  # unpacked positions
@@ -462,9 +462,8 @@ def test_wrappers_reject_bad_arguments():
         KF.detect(dpts, col, colstart[:-1], ny, ll * ll)
     with pytest.raises(ValueError):
         KF.detect(dpts, col, colstart, 0, ll * ll)
-    with pytest.raises(ValueError):                  # a block-window array
-        KF.detect(dpts, col, bw, ny, ll * ll)
-    cell, win = ctx.sweep_windows
+    with pytest.raises(ValueError):                  # a cell-window array
+        KF.detect(dpts, col, win, ny, ll * ll)
     pts = KF.pack(ctx.pos.T)
     vels = KF.pack(torch.zeros(ctx.ns, 3), torch.ones(ctx.ns))
     with pytest.raises(TypeError):
@@ -488,8 +487,8 @@ def test_wrappers_reject_bad_arguments():
         KF.sweep3d(pts, lab, cell, win[:, :8], ll * ll)
     with pytest.raises(ValueError):
         KF.sweep3d(pts, lab, cell, win.reshape(-1, 2), ll * ll)
-    with pytest.raises(ValueError):                    # a block-window array
-        KF.sweep3d(pts, lab, cell, bw.transpose(1, 2), ll * ll)
+    with pytest.raises(ValueError):                    # starts without counts
+        KF.sweep3d(pts, lab, cell, win[:, :, :1], ll * ll)
     with pytest.raises(ValueError):
         KF.sweep6d(pts, vels[1:], lab, cell, win, 1.0)
     with pytest.raises(TypeError):

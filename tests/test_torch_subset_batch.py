@@ -1,16 +1,16 @@
 """The port's batched subset search (velociraptor_stf_tpu_torch/models/
-substructure.py::search_subset_batch, ``search_level_subsets`` and the
-mesh form in parallel/distributed_substructure.py) against the JAX
-package's class-batched search (``_search_subset_batch``) and the port's
-per-structure ``search_subset``: ids and group counts exactly equal.
+substructure.py::search_subset_batch and the mesh form in
+parallel/distributed_substructure.py) against the JAX package's
+class-batched search (``_search_subset_batch``) and its per-structure
+``search_subset``: ids and group counts exactly equal.
 
 * the three structures of tests/test_distributed.py:348-392 for every
-  batchable foftype;
+  foftype the JAX package batches;
 * one batch of structures of three pad sizes: one without any group, and
   one whose two first-pass groups merge under fmerge;
 * a pair budget small enough to split the structures into batches;
-* the counters ``search_sub_sub`` keeps: batched for the batchable
-  foftypes, sequential for FOFSTPROBNNNODIST and iiterflag = 0;
+* the recursion sends every structure through the batch, also for
+  FOFSTPROBNNNODIST and iiterflag = 0, with the JAX package's ids;
 * the host fetches: one for the candidate totals, then at most two per
   batch (``utils/transfer.py::fetch_small``), and no more host syncs for nine
   structures in a batch than for three;
@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 from torch.overrides import TorchFunctionMode
+
+import jax.numpy as jnp
 
 from velociraptor_stf_tpu.models import substructure as JS
 from velociraptor_stf_tpu.utils import config as C
@@ -107,13 +109,31 @@ def _copies(entries):
     return [dict(e) for e in entries]
 
 
-def _sequential(topt, entries):
+def _jax_alone(opt, entries):
+    """The JAX package's per-structure ``search_subset`` of each entry's
+    padded rows over its padded bounds, as entries: ``sub`` its valid
+    rows' ids, ``ng_sub``."""
+    out = []
     for e in entries:
-        n = e["nsub"]
-        e["sub"], e["ng_sub"] = TS.search_subset(
-            topt, e["ppos"][:n], e["pvel"][:n], e["pmass"][:n],
-            e["ell"][:n], bounds=e["bounds"], npad=e["npad"])
-    return entries
+        pfof, ng = JS.search_subset(
+            opt, *(jnp.asarray(e[k].numpy())
+                   for k in ("ppos", "pvel", "pmass", "ell")),
+            bounds=e["bounds"])
+        out.append({"sub": torch.from_numpy(
+            np.asarray(pfof)[:e["nsub"]].astype(np.int64)), "ng_sub": ng})
+    return out
+
+
+@pytest.fixture(scope="module")
+def three_alone(three):
+    """``_jax_alone`` of ``three``, once per foftype."""
+    done: dict = {}
+
+    def get(foftype=C.FOFSTPROB):
+        if foftype not in done:
+            done[foftype] = _jax_alone(_opts(foftype=foftype), three)
+        return done[foftype]
+    return get
 
 
 def _assert_same(got, want):
@@ -131,7 +151,8 @@ def _assert_jax_same(got, jentries):
 
 
 @pytest.mark.parametrize("foftype", BATCHABLE)
-def test_batch_matches_reference_and_per_structure(three, foftype):
+def test_batch_matches_reference_and_per_structure(three, three_alone,
+                                                   foftype):
     opt = _opts(foftype=foftype)
     topt = convert.options(opt)
     jentries = [_jax_entry(e) for e in three]
@@ -140,7 +161,7 @@ def test_batch_matches_reference_and_per_structure(three, foftype):
     got = _copies(three)
     TS.search_subset_batch(topt, got)
     assert telemetry.snapshot()["subset_batches"] == 1
-    _assert_same(got, _sequential(topt, _copies(three)))
+    _assert_same(got, three_alone(foftype))
     _assert_jax_same(got, jentries)
     assert sum(e["ng_sub"] for e in got) > 0
 
@@ -202,7 +223,7 @@ def test_mixed_batch(monkeypatch):
     TS.search_subset_batch(topt, got)
     assert telemetry.snapshot()["subset_batches"] == 1
     assert merged and merged[0] >= 1            # fmerge merged two groups
-    _assert_same(got, _sequential(topt, _copies(entries)))
+    _assert_same(got, _jax_alone(opt, entries))
     assert got[0]["ng_sub"] == 0 and got[1]["ng_sub"] >= 1
     assert all(e["ng_sub"] >= 1 for e in got[2:])
     # the JAX batch takes one pad size a call
@@ -214,24 +235,26 @@ def test_mixed_batch(monkeypatch):
 
 
 @pytest.mark.parametrize("budget", [1, 800_000])
-def test_pair_budget_splits_batches(three, budget):
+def test_pair_budget_splits_batches(three, three_alone, budget):
     """A budget under one structure's candidates puts each structure in a
     batch of its own; one over two structures' but under three's makes
-    two batches.  The ids do not change."""
+    two batches.  The ids are the JAX per-structure search's."""
     topt = convert.options(_opts())
     telemetry.reset()
     got = _copies(three)
     TS.search_subset_batch(topt, got, pair_budget=budget)
     nbatch = telemetry.snapshot()["subset_batches"]
     assert nbatch == (3 if budget == 1 else 2)
-    _assert_same(got, _sequential(topt, _copies(three)))
+    _assert_same(got, three_alone())
 
 
 @pytest.mark.parametrize("case", ["batched", "nodist", "noniterative"])
 def test_counters_batched_and_sequential(case):
-    """search_sub_sub sends every structure through the batched search
-    when ``_batchable_subset`` holds and through search_subset otherwise
-    (tests/test_substructure.py:436-477)."""
+    """search_sub_sub sends every structure through the batched search,
+    whatever the foftype and ``iiterflag`` (the JAX package searches
+    FOFSTPROBNNNODIST and iiterflag = 0 structure by structure,
+    tests/test_substructure.py:436-477), and gives the JAX package's
+    ids."""
     pos, vel, mass, host = planted_subhalos(3, seed=20)
     over = {"batched": {}, "nodist": {"foftype": C.FOFSTPROBNNNODIST},
             "noniterative": {"iiterflag": 0}}[case]
@@ -245,17 +268,14 @@ def test_counters_batched_and_sequential(case):
                    if k.startswith("subsub_level") and
                    k.endswith("_structures"))
     assert searched >= 3
+    assert snap["subset_batched_particles"] >= searched * 1024
+    assert snap["subset_batches"] >= 1 and snap["subset_batch_pairs"] > 0
+    want = JS.search_sub_sub(opt, pos, vel, mass, host.copy(), 3)
+    assert out[1] == want[1]
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(out[3], want[3])
     if case == "batched":
-        assert snap["subset_batched_structures"] == searched
-        assert snap["subset_batched_particles"] >= searched * 1024
-        assert snap.get("subset_sequential_structures", 0) == 0
-        assert snap["subset_batches"] >= 1 and \
-            snap["subset_batch_pairs"] > 0
         assert out[1] > 3
-    else:
-        assert snap["subset_sequential_structures"] == searched
-        assert snap.get("subset_batched_structures", 0) == 0
-        assert "subset_batches" not in snap
 
 
 class _HostSyncs(TorchFunctionMode):
@@ -313,26 +333,26 @@ def test_mesh_batched_search_matches_one_device(three):
     search, bit for bit."""
     topt = convert.options(_opts())
     one = _copies(three)
-    TS.search_level_subsets(topt, one)
+    TS.search_subset_batch(topt, one)
     telemetry.reset()
     dealt = _copies(three)
     distributed_structure_search(topt, dealt, 1, False, make_mesh(8, "cpu"))
     snap = telemetry.snapshot()
-    assert snap["subset_batched_structures"] == 3
+    assert snap["subset_batched_particles"] == sum(e["npad"] for e in three)
     assert snap["subset_batches"] == 3             # one a loaded shard
     _assert_same(dealt, one)
 
 
 def test_structure_keyed_pair_counts():
-    """pair_counts_sparse with a structure key: the distinct (key, i, j)
-    in lexicographic order with their counts, against a dict."""
+    """pair_counts with a structure key: the distinct (key, i, j) in
+    lexicographic order with their counts, against a dict."""
     rng = np.random.default_rng(3)
     m = 4000
     key = rng.integers(0, 5, m)
     gi, gj = rng.integers(0, 7, m), rng.integers(0, 7, m)
     mask = rng.random(m) < 0.7
-    k, i, j, c = tseg.pair_counts_sparse(*(torch.from_numpy(a) for a in
-                                           (gi, gj, mask, key)))
+    k, i, j, c = (t.numpy() for t in tseg.pair_counts(
+        *(torch.from_numpy(a) for a in (gi, gj, mask, key))))
     want = {}
     for t in np.nonzero(mask)[0]:
         trip = (key[t], gi[t], gj[t])

@@ -1,9 +1,11 @@
 """The port's substructure search stages (velociraptor_stf_tpu_torch/models/
 substructure.py) against the JAX package's on the same inputs: the
-significance filter, the subset search for every FoF_search_type with and
-without the iterative pass, the fmerge link merge and the sparse pair
-counts.  The discrete stages get the JAX package's own outlier values, so
-the group ids must be exactly equal.
+significance filter, the subset search (``search_subset_batch`` of one
+structure, against the JAX per-structure ``search_subset``) for every
+FoF_search_type with and without the iterative pass, the fmerge link merge
+through the whole search and the sparse pair counts.  The discrete stages
+get the JAX package's own outlier values, so the group ids must be exactly
+equal.
 """
 
 import numpy as np
@@ -48,6 +50,20 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _alone(opt, pos, vel, mass, ell, bounds=None, npad=None):
+    """``search_subset_batch`` of one structure: (int64 ids, group count).
+    ``bounds`` default to the rows' extent, the grid the JAX search takes
+    without bounds; ``npad`` to the row count."""
+    p = _t(pos)
+    b = p.double()
+    e = {"ppos": p, "pvel": _t(vel), "pmass": _t(mass), "ell": _t(ell),
+         "nsub": len(pos), "npad": npad or len(pos),
+         "bounds": bounds or (b.amin(0).numpy(), b.amax(0).numpy())}
+    TS.search_subset_batch(opt, [e])
+    assert e["sub"].dtype == torch.int64
+    return e["sub"], e["ng_sub"]
+
+
 @pytest.fixture(scope="module")
 def structure():
     """A planted subhalo and the JAX package's outlier values of it."""
@@ -82,11 +98,11 @@ def jax_subsets(structure):
 def test_search_subset_matches_reference(structure, jax_subsets, foftype,
                                          iiterflag):
     """Every criterion, single pass and iterative (attach, merge, relaxed
-    attach), exactly the JAX package's ids."""
+    attach), the batch of one exactly the JAX package's ids."""
     pos, vel, mass, member, ell = structure
     want, ng_want = jax_subsets(foftype, iiterflag)
-    got, ng = TS.search_subset(convert.options(_opts(foftype, iiterflag)),
-                               _t(pos), _t(vel), _t(mass), _t(ell))
+    got, ng = _alone(convert.options(_opts(foftype, iiterflag)), pos, vel,
+                     mass, ell)
     assert ng == ng_want
     np.testing.assert_array_equal(got.numpy(), want)
     if foftype == C.FOFSTPROB:
@@ -95,8 +111,9 @@ def test_search_subset_matches_reference(structure, jax_subsets, foftype,
 
 def test_search_subset_padded_normalisations(structure):
     """ScaleEll and FOF6DSUBSET normalise by the mean mass and velocity
-    variance of the reference's padded rows: the port given the valid rows
-    and ``npad`` equals the JAX search over the padded structure."""
+    variance of the reference's padded rows: the port's batch of one given
+    the valid rows and ``npad`` equals the JAX search over the padded
+    structure."""
     pos, vel, mass, _, ell = structure
     npad = 8192
     ppos, pvel, pmass, valid = JS._pad_structure(pos, vel, mass, npad, 0.15)
@@ -107,9 +124,8 @@ def test_search_subset_padded_normalisations(structure):
         want, ng_want = JS.search_subset(
             opt, jnp.asarray(ppos), jnp.asarray(pvel), jnp.asarray(pmass),
             jnp.asarray(pell.astype(np.float32)), bounds=bounds)
-        got, ng = TS.search_subset(convert.options(opt), _t(pos), _t(vel),
-                                   _t(mass), _t(ell), bounds=bounds,
-                                   npad=npad)
+        got, ng = _alone(convert.options(opt), pos, vel, mass, ell,
+                         bounds=bounds, npad=npad)
         assert ng == ng_want
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(want)[:len(pos)])
@@ -134,54 +150,50 @@ def test_significance_filter_matches_reference():
     assert (want > 0).sum() > 300
 
 
-@pytest.mark.parametrize("sep,edges", [(0.08, False), (5.0, False),
-                                       (0.08, True)])
-def test_merge_linked_groups_matches_reference(sep, edges):
-    """tests/test_merging.py's fragments, joined and apart, with a built
-    table and along search_subset's shared table."""
-    import math
-
-    from velociraptor_stf_tpu_torch.ops import fof as tfof
-
+@pytest.mark.parametrize("sep,foftype", [(0.08, C.FOFSTPROB),
+                                         (5.0, C.FOFSTPROB),
+                                         (0.08, C.FOFSTPROBNNNODIST)])
+def test_link_merge_through_the_search_matches_reference(sep, foftype):
+    """tests/test_merging.py's fragments, joined and apart, through the
+    iterative search, whose link merge runs on the shared table (for
+    FOFSTPROBNNNODIST beside a first pass over the stencil): the batch of
+    one gives the JAX per-structure search's ids."""
     rng = np.random.default_rng(0)
     opt = C.Options()
     opt.ellxscale, opt.ellphys = 1.0, 0.05
     opt.Vratio, opt.thetaopen = 1.25, 0.05
     opt.ellthreshold, opt.ellfac, opt.fmerge = 1.0, 0.8, 0.25
+    opt.iiterflag, opt.foftype = 1, foftype
     pos, vel = _two_fragments(rng, sep=sep)
+    mass = np.ones(len(pos), np.float32)
     ell = np.full(len(pos), 2.0, np.float32)
-    pfof = np.concatenate([np.full(300, 1), np.full(300, 2)]).astype(np.int32)
-    want, ng_want = JS.merge_linked_groups(pos, vel, ell, pfof, 2, opt)
-    table = None
-    if edges:
-        b = math.sqrt((opt.ellxscale * opt.ellphys) ** 2) * 2.0
-        table = tfof.build_edges(_t(pos), b, fields={"vel": _t(vel),
-                                                     "ell": _t(ell)},
-                                 predicate=tfof.Pred3D(b * b))
-    got, ng = TS.merge_linked_groups(_t(pos), _t(vel), _t(ell),
-                                     _t(pfof).long(), 2,
-                                     convert.options(opt), edges=table)
+    want, ng_want = JS.search_subset(opt, jnp.asarray(pos), jnp.asarray(vel),
+                                     jnp.asarray(mass), jnp.asarray(ell))
+    got, ng = _alone(convert.options(opt), pos, vel, mass, ell)
     assert ng == ng_want
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert len(np.unique(got.numpy())) == (1 if sep < 1 else 2)
+    assert ng == (1 if sep < 1 else 2)
 
 
 def test_pair_counts_sparse_matches_reference():
+    """``pair_counts``, the subset batch's link counts, against the JAX
+    package's ``pair_counts_sparse``."""
     rng = np.random.default_rng(3)
     ng, m = 57, 5000
     gi = rng.integers(0, ng + 1, m).astype(np.int32)
     gj = rng.integers(0, ng + 1, m).astype(np.int32)
     mask = (gi > 0) & (gj > 0) & (gi != gj) & (rng.random(m) < 0.7)
     want = jseg.pair_counts_sparse(gi, gj, mask)
-    got = tseg.pair_counts_sparse(_t(gi), _t(gj), _t(mask))
+    key, *got = tseg.pair_counts(_t(gi), _t(gj), _t(mask))
+    assert key is None
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, np.asarray(w))
-    empty = tseg.pair_counts_sparse(_t(gi), _t(gj), _t(np.zeros(m, bool)))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _, *empty = tseg.pair_counts(_t(gi), _t(gj), _t(np.zeros(m, bool)))
     assert all(len(a) == 0 for a in empty)
 
 
 def test_predicates_match_reference():
-    """The ten pair criteria on random pairs, both orientations."""
+    """The nine pair criteria on random pairs, both orientations."""
     rng = np.random.default_rng(8)
     k = 20000
     own = {"vel": rng.normal(0, 50, (k, 3)), "ell": rng.normal(2.5, 1, k),
@@ -199,8 +211,6 @@ def test_predicates_match_reference():
             "StreamPredNoProb": (0.002, 2.0, 0.95),
             "StreamPredNoDist": (2.0, 0.95, 2.5),
             "StreamPredLX": (0.002, 2.0, 0.95, 2.5),
-            "StreamPredScaleEll": (0.002, 2.0, 0.95, 2.5, 1.4),
-            "Pred6DOutlier": (0.002, 5e4, 2.5),
             "StreamPredScaleEllB": (0.002, 2.0, 0.95, 2.5),
             "Pred6DOutlierB": (0.002, 2.5),
             "Pred6DBackground": (0.002, 5e4, 2.5),

@@ -11,8 +11,8 @@ library at the first launch).
 """
 
 # Rows per block of the plain versions' tiles (``_common.window_tiles``, the
-# potential's plain version) and of ``ops/fof_sweep.py::block_windows``.  The
-# kernels' own launch geometry is in their sources and in potential.py.
+# potential's plain version).  The kernels' own launch geometry is in their
+# sources and in potential.py.
 R_BLOCK = 256
 
 LAUNCHES = {"fof_detect": 0, "fof_sweep3d": 0, "fof_sweep6d": 0,

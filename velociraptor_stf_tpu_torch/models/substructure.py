@@ -1,41 +1,37 @@
 """Substructure search: phase-space outliers, stream FOF, merger cores and
 the recursion over levels (port of velociraptor_stf_tpu/models/
 substructure.py: the pair criteria, ``subset_predicate``,
-``significance_filter``, ``search_subset``, the batched subset search
-(``_batchable_subset``, ``_subset_preds``, ``_search_subset_batch``),
-``merge_linked_groups``, ``attach_expand``, the three host merges, the
-padded structure context, ``structure_outliers``, ``search_sub_sub``,
-``Pred6DCore``, ``halo_core_search`` and ``_phase_tensor_growth``), and
-the batched merger-core search, which the reference does not have.
+``significance_filter``, the batched subset search (``_subset_preds``,
+``_search_subset_batch``), the three host merges, the padded structure
+context, ``structure_outliers``, ``search_sub_sub``, ``Pred6DCore``,
+and the merger-core search, which the reference runs per structure).
 
-* ``search_subset`` (reference SearchSubset, search.cxx:910-1816): a pair
-  links when both particles are outliers (ell >= threshold), lie within
-  the substructure linking length and move alike (speed ratio within
-  Vratio, velocity angle below thetaopen); with ``Iterative_searchflag``
-  a tightened first pass, two attach expansions and the fmerge link merge
-  (MergeGroups).  One cell-sorted edge table at the widest reach serves
-  all four passes.  ``significance_filter`` (CheckSignificance, :2947)
-  sheds low-ell members until a group is significant.
-* ``search_subset_batch``: the same search over many structures at once,
-  which ``search_sub_sub`` takes for a whole level whenever the reference
-  batches (``_batchable_subset``: the iterative search, any foftype but
-  FOFSTPROBNNNODIST).  One cell sort keyed by (structure, cell), then
-  batches of whole structures under an exact pair budget; in each, the
-  four criteria in one pass over the in-reach pairs and every graph pass
-  on ids offset by structure, with at most two host fetches a batch.  The
-  reference's pow2 lane classes, pair cap and fallbacks served XLA's
-  static shapes and are not carried over: a batchable structure always
-  takes the batch, and a failure raises.
-* ``search_cores_batch``: ``halo_core_search`` (HaloCoreGrowth, :1817)
-  over a level's structures at once, which ``search_level_cores`` takes
-  whenever the linking length only shrinks over the loops (every shipped
-  config): one cell sort keyed by (structure, cell), each structure's
-  lengths, sizes and cores on the device, one label fixed point a loop
-  over the union of the live structures' links, then the phase-tensor
-  growth with cores keyed (structure, core).  Its ids are the
-  per-structure search's: the two share the velocity scale's segment
-  sums, the link's tensor divisions and the growth's elementwise
-  Cholesky factor and distance, whose rounding depends on no batch.
+A level's structures take one route, whatever the options: the subset
+search and the merger-core search each run over all of them at once, a
+single structure being a batch of one.
+
+* ``search_subset_batch`` (reference SearchSubset, search.cxx:910-1816):
+  a pair links when both particles are outliers (ell >= threshold), lie
+  within the substructure linking length and move alike (speed ratio
+  within Vratio, velocity angle below thetaopen); with
+  ``Iterative_searchflag`` a tightened first pass, two attach expansions
+  and the fmerge link merge (MergeGroups); ``significance_filter``
+  (CheckSignificance, :2947) sheds low-ell members until a group is
+  significant.  One cell sort keyed by (structure, cell) at the widest
+  reach serves every pass (FOFSTPROBNNNODIST's first pass, which has no
+  linking length, takes every candidate of a second sort at the linking
+  length), then batches of whole structures under an exact pair budget;
+  in each, every graph pass on ids offset by structure, with at most two
+  host fetches a batch.  The reference's pow2 lane classes, pair cap and
+  fallbacks served XLA's static shapes and are not carried over.
+* ``search_cores_batch`` (search.cxx:1530-1816, HaloCoreGrowth:1817):
+  one cell sort keyed by (structure, cell) at the longest length of the
+  loops, each structure's lengths, sizes and cores on the device, one
+  label fixed point a loop over the union of the live structures' links,
+  then the phase-tensor growth with cores keyed (structure, core).  A
+  structure's ids do not depend on the others in its batch: the velocity
+  scale's segment sums, the link's tensor divisions and the growth's
+  elementwise Cholesky factor and distance round the same in any batch.
 * ``search_sub_sub`` (SearchSubSub, :2480-2946): the velocity density once
   over the particles of structures of at least MINSUBSIZE members, then per
   level: each structure's padded context (``_prep_class``), its background
@@ -54,7 +50,7 @@ cell grid, as they do in the reference.  Structures of one pad size share
 one batched context build and one outlier pass.  A pair's orientation
 (which end is the criterion's own side, where the speed-ratio test can
 differ in the last bit) is that of the structure's own cell order on its
-own padded bounds, in the batched search as in ``search_subset``; the
+own padded bounds, as in the reference's per-structure search; the
 reference's batch orients pairs on a grid over its lane class's joint
 bounds.  The reference's environment switches are not ported.
 
@@ -212,49 +208,11 @@ class StreamPredLX:
 
 
 @dataclasses.dataclass(frozen=True)
-class StreamPredScaleEll:
-    """FOFStreamwithprobscaleell (fofalgo.cxx:120-137): the linking
-    length scaled by (lighter mass / reference mass)^(2/3)."""
-
-    symmetric = True
-
-    b2: float
-    vratio: float
-    costheta: float
-    ellthr: float
-    mref: float
-
-    def __call__(self, d2, own, nbr):
-        mmin = torch.minimum(own["mass"], nbr["mass"])
-        ellscale = self.b2 * torch.pow(
-            torch.clamp_min(mmin / self.mref, 1e-30), 2.0 / 3.0)
-        vdot, ratio = _stream_terms(own, nbr)
-        ok = (d2 < ellscale) & (vdot > self.costheta) & \
-            _ratio_ok(ratio, self.vratio)
-        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
-
-
-@dataclasses.dataclass(frozen=True)
-class Pred6DOutlier:
-    """FOF6dbgup (fofalgo.cxx:166-174): the 6D metric, both outliers
-    (FOF6DSUBSET)."""
-
-    symmetric = True
-
-    b2: float
-    v2: float
-    ellthr: float
-
-    def __call__(self, d2, own, nbr):
-        dv2 = seg.sq3(own["vel"] - nbr["vel"])
-        ok = d2 / self.b2 + dv2 / self.v2 < 1.0
-        return ok & (own["ell"] >= self.ellthr) & (nbr["ell"] >= self.ellthr)
-
-
-@dataclasses.dataclass(frozen=True)
 class StreamPredScaleEllB:
-    """StreamPredScaleEll with the reference mass a per-particle field
-    ``scal`` (the reference's batched form)."""
+    """FOFStreamwithprobscaleell (fofalgo.cxx:120-137): the linking
+    length scaled by (lighter mass / reference mass)^(2/3), the reference
+    mass the per-particle field ``scal`` (the reference's batched
+    form)."""
 
     symmetric = True
 
@@ -276,8 +234,9 @@ class StreamPredScaleEllB:
 
 @dataclasses.dataclass(frozen=True)
 class Pred6DOutlierB:
-    """Pred6DOutlier with the velocity scale a per-particle field
-    ``scal`` (the reference's batched form)."""
+    """FOF6dbgup (fofalgo.cxx:166-174): the 6D metric, both outliers
+    (FOF6DSUBSET), the velocity scale the per-particle field ``scal``
+    (the reference's batched form)."""
 
     symmetric = True
 
@@ -331,11 +290,11 @@ def _core_link(d2, dv2, b2, v2):
 
 
 def subset_predicate(opt: C.Options, ellx2: float, vratio: float,
-                     costheta: float, ellthr: float, mref: float = 1.0,
-                     sigmav2: float = 1.0):
+                     costheta: float, ellthr: float):
     """FoF_search_type -> pair criterion (reference search.cxx:910-1010);
-    the NN variants map to the same criteria.  ``sigmav2`` scales the 6D
-    metric of FOF6DSUBSET."""
+    the NN variants map to the same criteria.  ScaleEll and FOF6DSUBSET
+    read their structure's mean mass or velocity scale from the per-row
+    field ``scal`` (``_structure_scal``)."""
     ft = opt.foftype
     if ft in (C.FOFSTPROB, C.FOFSTPROBNN, C.FOFSTNOSUBSET):
         return StreamPred(ellx2, vratio, costheta, ellthr)
@@ -344,14 +303,16 @@ def subset_predicate(opt: C.Options, ellx2: float, vratio: float,
     if ft == C.FOFSTPROBNNNODIST:
         return StreamPredNoDist(vratio, costheta, ellthr)
     if ft in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
-        return StreamPredScaleEll(ellx2, vratio, costheta, ellthr, mref)
+        return StreamPredScaleEllB(ellx2, vratio, costheta, ellthr)
     if ft == C.FOF6DSUBSET:
-        return Pred6DOutlier(ellx2, sigmav2 * opt.ellvel ** 2, ellthr)
+        return Pred6DOutlierB(ellx2, ellthr)
     return StreamPred(ellx2, vratio, costheta, ellthr)
 
 
 # ---------------------------------------------------------------------------
-# Significance, the subset search, link merging, attachment
+# Significance and the subset search over many structures at once
+# (reference SearchSubset, search.cxx:910-1816, and _search_subset_batch,
+# substructure.py:844-1180)
 # ---------------------------------------------------------------------------
 
 def significance_filter(ell: torch.Tensor, pfof: torch.Tensor,
@@ -383,20 +344,6 @@ def significance_filter(ell: torch.Tensor, pfof: torch.Tensor,
     return torch.where(keep, pfof, 0)
 
 
-def _renumber_ids(pfof: torch.Tensor, ngpad: int, min_size: int
-                  ) -> Tuple[torch.Tensor, int]:
-    """Group ids 1..ngpad -> 1..ng by decreasing size, equal sizes by the
-    lower old id; groups under ``min_size`` go to 0."""
-    sizes = seg.group_sizes(pfof, ngpad)
-    gids = torch.arange(ngpad + 1, device=pfof.device)
-    eligible = (sizes >= min_size) & (gids > 0)
-    order = torch.argsort(-torch.where(eligible, sizes, 0), stable=True)
-    ngnew = int(eligible.sum())
-    gid_map = torch.zeros(ngpad + 1, dtype=torch.int64, device=pfof.device)
-    gid_map[order] = torch.where(gids < ngnew, gids + 1, 0)
-    return gid_map[torch.clamp(pfof, 0, ngpad)], ngnew
-
-
 def _scatter_back(values_s: torch.Tensor, order: torch.Tensor
                   ) -> torch.Tensor:
     out = torch.empty_like(values_s)
@@ -404,241 +351,37 @@ def _scatter_back(values_s: torch.Tensor, order: torch.Tensor
     return out
 
 
-def _padded_mean_var(opt: C.Options, mass, vel, npad: Optional[int]
-                     ) -> Tuple[float, float]:
-    """The reference's per-structure normalisations, over its padded rows
-    (zero mass and velocity), in float32 numpy as it computes them: the
-    mean mass for the ScaleEll criteria, the mean per-axis velocity
-    variance for FOF6DSUBSET."""
-    mref = sigmav2 = 1.0
-    extra = 0 if npad is None else max(npad - mass.shape[0], 0)
-    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
-        m = np.concatenate([mass.cpu().numpy(), np.zeros(extra, np.float32)])
-        mv = float(np.mean(m))
-        mref = mv if np.isfinite(mv) and mv > 0 else 1.0
-    if opt.foftype == C.FOF6DSUBSET:
-        v = np.concatenate([vel.cpu().numpy(),
-                            np.zeros((extra, 3), np.float32)])
-        sv = float(np.mean(np.var(v, axis=0))) if len(v) else float("nan")
-        sigmav2 = sv if np.isfinite(sv) and sv > 0 else 1.0
-    return mref, sigmav2
-
-
-def search_subset(opt: C.Options, pos: torch.Tensor, vel: torch.Tensor,
-                  mass: torch.Tensor, ell: torch.Tensor,
-                  bounds=None, npad: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, int]:
-    """Substructure candidates of one (re-centred) structure: (int64
-    pfof, ngroups), ids 1..ng by size (reference SearchSubset).
-    ``bounds``: host (lo, hi) of the cell grid (the reference passes its
-    padded structure's); ``npad``: the reference's padded row count,
-    which its mean mass and velocity variance include."""
-    n = pos.shape[0]
-    ellx2 = (opt.ellxscale * opt.ellphys) ** 2
-    costh = math.cos(opt.thetaopen * math.pi)
-    costh_it = math.cos(opt.thetaopen * math.pi * opt.thetafac)
-    needs_mass = opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN)
-    needs_pos = opt.foftype in (C.FOFSTPROBLX, C.FOFSTPROBNNLX)
-    mref, sigmav2 = _padded_mean_var(opt, mass, vel, npad)
-    if opt.iiterflag:
-        pred0 = subset_predicate(opt, ellx2, opt.Vratio * opt.vfac, costh_it,
-                                 opt.ellthreshold * opt.ellfac, mref=mref,
-                                 sigmav2=sigmav2)
-        minsize0 = max(2, int(opt.MinSize * opt.nminfac))
-    else:
-        pred0 = subset_predicate(opt, ellx2, opt.Vratio, costh,
-                                 opt.ellthreshold, mref=mref,
-                                 sigmav2=sigmav2)
-        minsize0 = opt.MinSize
-    b = math.sqrt(ellx2)
-    fields = {"ell": ell, "vel": vel}
-    if needs_mass:
-        fields["mass"] = mass
-    if needs_pos:
-        fields["pos"] = pos
-
-    # one edge table at the widest reach serves the first search, both
-    # attach passes and the link merge: every criterion but NNNODIST cuts
-    # within it (the reference rebuilds its tree per pass)
-    share = bool(opt.iiterflag) and opt.foftype != C.FOFSTPROBNNNODIST
-    edges = None
-    if share:
-        b_build = b * max(1.0, opt.ellxfac)
-        edges = fof.build_edges(pos, b_build, fields=fields,
-                                predicate=fof.Pred3D(b_build * b_build),
-                                bounds=bounds)
-        mask = _refine(edges, pred0)
-        labels = fof.fof_labels_from_edges(edges.erow[mask],
-                                           edges.ecol[mask], n,
-                                           undirected=edges.undirected)
-        pfof_s, ng = fof.renumber_by_size(labels, minsize0,
-                                          orig_index=edges.order)
-        pfof = _scatter_back(pfof_s.long(), edges.order)
-    else:
-        pfof, ng = fof.fof3d(pos, b, min_size=minsize0, vel=vel,
-                             extra_fields={k: v for k, v in fields.items()
-                                           if k != "vel"},
-                             predicate=pred0, bounds=bounds)
-        pfof = pfof.long()
-    if ng == 0:
-        return pfof, 0
-
-    if opt.iiterflag:
-        # expansion: attach untagged particles under the base thresholds
-        pred_att = StreamPredAttach(ellx2, opt.Vratio * opt.vfac, costh_it,
-                                    opt.ellthreshold)
-        pfof = _attach_shared(edges, pred_att, pfof) if share else \
-            attach_expand(pos, vel, ell, pfof, b, pred_att)
-        sizes_old = seg.group_sizes(pfof, ng).cpu().numpy()
-        pfof, ng = merge_linked_groups(pos, vel, ell, pfof, ng, opt,
-                                       sizes_old=sizes_old, edges=edges)
-        # relaxed second expansion at ellxfac times the linking length
-        ellx2b = ellx2 * opt.ellxfac ** 2
-        pred_att2 = StreamPredAttach(ellx2b, opt.Vratio * opt.vfac, costh_it,
-                                     opt.ellthreshold * opt.ellfac)
-        pfof = _attach_shared(edges, pred_att2, pfof) if share else \
-            attach_expand(pos, vel, ell, pfof, math.sqrt(ellx2b), pred_att2)
-
-    ngpad = 1
-    while ngpad < ng + 1:
-        ngpad *= 2
-    pfof = significance_filter(ell, pfof, ngpad, opt.ellthreshold,
-                               opt.siglevel, opt.MinSize)
-    return _renumber_ids(pfof, ngpad, opt.MinSize)
-
-
-def _refine(edges: fof.FlatEdges, pred, flip: bool = False) -> torch.Tensor:
-    """``pred`` along the edge table (``flip``: with the columns as the
-    pair's own side)."""
-    a, b = (edges.ecol, edges.erow) if flip else (edges.erow, edges.ecol)
-    return fof.refine_edge_mask(edges.pos_s, edges.fields_s, a, b,
-                                edges.boxsize, pred)
-
-
-def _attach_shared(edges: fof.FlatEdges, pred, pfof: torch.Tensor,
-                   nrounds: int = 16) -> torch.Tensor:
-    """Attach rounds along the shared table: the (asymmetric) attach
-    criterion on both orientations of an undirected table."""
-    mf = _refine(edges, pred)
-    er, ec = edges.erow[mf], edges.ecol[mf]
-    if edges.undirected:
-        mb = _refine(edges, pred, flip=True)
-        er = torch.cat([er, edges.ecol[mb]])
-        ec = torch.cat([ec, edges.erow[mb]])
-    labels = fof.attach_rounds(pfof[edges.order], er, ec, nrounds)
-    return _scatter_back(labels, edges.order)
-
-
-def attach_expand(pos, vel, ell, pfof: torch.Tensor, linking_length: float,
-                  pred, max_rounds: int = 16) -> torch.Tensor:
-    """Untagged particles adopt the lowest group id among their linked
-    tagged neighbours, to exhaustion (one edge build, then rounds)."""
-    edges = fof.build_edges(pos, linking_length,
-                            fields={"vel": vel, "ell": ell}, predicate=pred)
-    labels = fof.attach_rounds(pfof.long()[edges.order], edges.erow,
-                               edges.ecol, max_rounds)
-    return _scatter_back(labels, edges.order)
-
-
-def merge_linked_groups(pos, vel, ell, pfof: torch.Tensor, ng: int,
-                        opt: C.Options,
-                        sizes_old: Optional[np.ndarray] = None,
-                        edges: Optional[fof.FlatEdges] = None
-                        ) -> Tuple[torch.Tensor, int]:
-    """Group j joins group i when their cross links under the relaxed
-    stream criterion outnumber fmerge x (j's size before expansion)
-    (reference MergeGroups, search.cxx:1200-1224, 3894).  Ids are not
-    renumbered.  ``edges``: a table spanning at least the linking length
-    to re-evaluate instead of building one."""
-    pfof = pfof.long()
-    if ng <= 1:
-        return pfof, ng
-    if sizes_old is None:
-        sizes_old = seg.group_sizes(pfof, ng).cpu().numpy()
-    ellx2 = (opt.ellxscale * opt.ellphys) ** 2
-    pred = StreamPred(ellx2, opt.Vratio * opt.vfac,
-                      math.cos(opt.thetaopen * math.pi * opt.thetafac),
-                      opt.ellthreshold * opt.ellfac)
-    if edges is not None:
-        m = _refine(edges, pred)
-        erow, ecol = edges.erow[m], edges.ecol[m]
-    else:
-        edges = fof.build_edges(pos, math.sqrt(ellx2),
-                                fields={"vel": vel, "ell": ell},
-                                predicate=pred)
-        erow, ecol = edges.erow, edges.ecol
-    gs = pfof[edges.order]
-    gi, gj = gs[erow], gs[ecol]
-    if edges.undirected:
-        gi, gj = torch.cat([gi, gj]), torch.cat([gj, gi])
-    pi, pj, counts = seg.pair_counts_sparse(gi, gj,
-                                            (gi > 0) & (gj > 0) & (gi != gj))
-    # the reference's (i, j) loop order: pairs arrive lexicographically
-    absorbed = np.zeros(ng + 1, bool)
-    target = np.arange(ng + 1)
-    merged = False
-    thresh = opt.fmerge * sizes_old
-    for i, j, c in zip(pi, pj, counts):
-        if absorbed[i] or absorbed[j] or c <= thresh[j]:
-            continue
-        absorbed[j] = True
-        target[target == j] = i
-        merged = True
-    if not merged:
-        return pfof, ng
-    return torch.from_numpy(target).to(pfof.device)[pfof], ng
-
-
-# ---------------------------------------------------------------------------
-# The subset search over many structures at once (reference
-# _search_subset_batch, substructure.py:844-1180)
-# ---------------------------------------------------------------------------
-
-_BATCHABLE = (C.FOFSTPROB, C.FOFSTPROBNN, C.FOFSTNOSUBSET, C.FOFSTPROBLX,
-              C.FOFSTPROBNNLX, C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN,
-              C.FOF6DSUBSET)
-
-
-def _batchable_subset(opt: C.Options) -> bool:
-    """Whether ``search_subset_batch`` serves the options (the reference's
-    condition): the iterative search, whose four passes all cut within
-    one reach, for every foftype but the stencil-reach FOFSTPROBNNNODIST,
-    whose candidate window is its criterion."""
-    return bool(opt.iiterflag) and opt.foftype in _BATCHABLE
-
-
 def _subset_preds(opt: C.Options):
-    """(pred0, pred_att, pred_att2, pred_merge) of the iterative search,
-    parameterised as ``search_subset`` does; the per-structure mass or
-    velocity scale of ScaleEll and FOF6DSUBSET rides the per-row field
-    ``scal`` (the ``*B`` criteria)."""
+    """(pred0, minsize0, iterative) of the subset search: with
+    ``iiterflag`` the tightened first pass and its minimum size, and
+    ``iterative`` = (pred_att, pred_att2, pred_merge), the two attach
+    criteria and the link merge's; without it the base thresholds,
+    ``MinSize`` and None."""
     ellx2 = (opt.ellxscale * opt.ellphys) ** 2
+    if not opt.iiterflag:
+        return (subset_predicate(opt, ellx2, opt.Vratio,
+                                 math.cos(opt.thetaopen * math.pi),
+                                 opt.ellthreshold), opt.MinSize, None)
     vratio = opt.Vratio * opt.vfac
     costh_it = math.cos(opt.thetaopen * math.pi * opt.thetafac)
     thr0 = opt.ellthreshold * opt.ellfac
-    if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
-        pred0 = StreamPredScaleEllB(ellx2, vratio, costh_it, thr0)
-    elif opt.foftype == C.FOF6DSUBSET:
-        pred0 = Pred6DOutlierB(ellx2, thr0)
-    else:
-        pred0 = subset_predicate(opt, ellx2, vratio, costh_it, thr0)
-    return (pred0,
-            StreamPredAttach(ellx2, vratio, costh_it, opt.ellthreshold),
-            StreamPredAttach(ellx2 * opt.ellxfac ** 2, vratio, costh_it,
-                             thr0),
-            StreamPred(ellx2, vratio, costh_it, thr0))
+    return (subset_predicate(opt, ellx2, vratio, costh_it, thr0),
+            max(2, int(opt.MinSize * opt.nminfac)),
+            (StreamPredAttach(ellx2, vratio, costh_it, opt.ellthreshold),
+             StreamPredAttach(ellx2 * opt.ellxfac ** 2, vratio, costh_it,
+                              thr0),
+             StreamPred(ellx2, vratio, costh_it, thr0)))
 
 
 def _structure_scal(opt: C.Options, vel, mass, sid, nsub, npad
                     ) -> Optional[torch.Tensor]:
-    """(nseg,) float32 per-structure ``scal`` of the batched criteria, over
-    the reference's padded rows (zero mass and velocity) as
-    ``_padded_mean_var`` takes them: the mean mass (ScaleEll) or the mean
-    per-axis velocity variance times ellvel^2 (FOF6DSUBSET); None for the
-    other foftypes.  Sums are float64 sorted segment sums over the valid
-    rows (``sid``: each row's structure, non-decreasing), rounded to
-    float32 once, where numpy's float32 mean can differ in the last
-    bit."""
+    """(nseg,) float32 per-structure ``scal`` of the ScaleEll and
+    FOF6DSUBSET criteria, over the reference's padded rows (zero mass and
+    velocity): the mean mass (ScaleEll) or the mean per-axis velocity
+    variance times ellvel^2 (FOF6DSUBSET); None for the other foftypes.
+    Sums are float64 sorted segment sums over the valid rows (``sid``:
+    each row's structure, non-decreasing), rounded to float32 once, where
+    numpy's float32 mean can differ in the last bit."""
     nseg = npad.shape[0]
     npad = npad.double()
     if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
@@ -660,26 +403,34 @@ def _structure_scal(opt: C.Options, vel, mass, sid, nsub, npad
 
 def search_subset_batch(opt: C.Options, entries: List[dict],
                         pair_budget: Optional[int] = None) -> None:
-    """``search_subset`` of many structures at once: fills ``e["sub"]``
-    (int64 ids in the structure's row order, 1..ng by size) and
-    ``e["ng_sub"]`` of every entry (``search_sub_sub``'s, with its valid
-    rows ``ppos``/``pvel``/``pmass``/``ell`` ``[:nsub]``, ``npad`` and
-    host ``bounds``).  Needs ``_batchable_subset(opt)``.
+    """The subset search of many structures at once (one structure is a
+    batch of one): fills ``e["sub"]`` (int64 ids in the structure's row
+    order, 1..ng by size) and ``e["ng_sub"]`` of every entry
+    (``search_sub_sub``'s, with its valid rows ``ppos``/``pvel``/
+    ``pmass``/``ell`` ``[:nsub]``, ``npad`` and host ``bounds``), and
+    counts the padded rows searched (``subset_batched_particles``).
 
-    One cell sort of every structure's rows, keyed by (structure, cell)
-    on each structure's own grid over its padded bounds
-    (``fof.segmented_cells``), so a pair is oriented, and its links
-    evaluated, exactly as the per-structure search orients it.  The
-    structures then go in batches of whole structures whose candidate
-    slots fit ``pair_budget`` (default: ``cell_pairs``' budget, 2^24 on a
-    card, 2^22 on the host); one fetch of the per-structure candidate
-    totals sets them.  Each batch runs ``_subset_batch``: every pass on
-    ids offset by structure, at most two host fetches."""
+    A pair links when both particles are outliers (ell >= threshold), lie
+    within the substructure linking length and move alike (the foftype's
+    criterion, ``subset_predicate``); with ``iiterflag`` a tightened
+    first pass, two attach expansions and the fmerge link merge
+    (MergeGroups); then ``significance_filter`` (CheckSignificance,
+    :2947) and the renumbering by size.  One cell sort of every
+    structure's rows, keyed by (structure, cell) on each structure's own
+    grid over its padded bounds (``fof.segmented_cells``) at the widest
+    reach of the passes, serves them all, so a pair is oriented, and its
+    links evaluated, as the reference's per-structure search orients it.
+    Where the first pass is a plain FOF under its criterion (no
+    ``iiterflag``, or FOFSTPROBNNNODIST, which has no linking length and
+    links any candidate of the stencil) it takes every candidate of a
+    sort at the linking length, as the reference's ``fof3d`` does.  The
+    structures go in batches of whole structures whose candidate slots
+    fit ``pair_budget`` (default: ``cell_pairs``' budget, 2^24 on a card,
+    2^22 on the host); one fetch of the per-structure candidate totals
+    sets them.  Each batch runs ``_subset_batch``: every pass on ids
+    offset by structure, at most two host fetches."""
     if not entries:
         return
-    if not _batchable_subset(opt):
-        raise ValueError(f"foftype {opt.foftype} with iiterflag "
-                         f"{opt.iiterflag} takes the per-structure search")
     dev = entries[0]["ppos"].device
     nsub = [int(e["nsub"]) for e in entries]
 
@@ -687,10 +438,15 @@ def search_subset_batch(opt: C.Options, entries: List[dict],
         return torch.cat([e[key][:e["nsub"]] for e in entries])
 
     pos, vel, mass, ell = (rows(k) for k in ("ppos", "pvel", "pmass", "ell"))
-    reach = math.sqrt((opt.ellxscale * opt.ellphys) ** 2) * \
-        max(1.0, opt.ellxfac)
-    cells = fof.segmented_cells(pos, nsub, [e["bounds"] for e in entries],
-                                reach)
+    bounds = [e["bounds"] for e in entries]
+    b = math.sqrt((opt.ellxscale * opt.ellphys) ** 2)
+    reach = b * max(1.0, opt.ellxfac) if opt.iiterflag else b
+    cells = fof.segmented_cells(pos, nsub, bounds, reach)
+    first = None                   # the first pass cuts the shared table
+    if not opt.iiterflag:
+        first = cells
+    elif opt.foftype == C.FOFSTPROBNNNODIST:
+        first = fof.segmented_cells(pos, nsub, bounds, b)
     fields = {"ell": ell, "vel": vel}
     if opt.foftype in (C.FOFSTPROBSCALEELL, C.FOFSTPROBSCALEELLNN):
         fields["mass"] = mass
@@ -702,15 +458,19 @@ def search_subset_batch(opt: C.Options, entries: List[dict],
                                         device=dev))
     if scal is not None:
         fields["scal"] = scal[cells.seg]
-    fields_s = {k: v[cells.order] for k, v in fields.items()}
-    totals = fetch_small(cells.candidates())
+    candidates = cells.candidates()
+    if first is not None and first is not cells:
+        candidates = torch.maximum(candidates, first.candidates())
+    totals = fetch_small(candidates)
     telemetry.count("subset_batch_candidates", int(totals.sum()))
     preds = _subset_preds(opt)
     runs = _budget_runs(totals, pair_budget or _pair_budget(dev))
     for k0, k1 in runs:
-        _subset_batch(opt, entries, cells, fields_s, ell, k0, k1, preds,
+        _subset_batch(opt, entries, cells, first, fields, ell, k0, k1, preds,
                       reach)
     telemetry.count("subset_batches", len(runs))
+    telemetry.count("subset_batched_particles",
+                    sum(e["npad"] for e in entries))
 
 
 def _pair_budget(dev: torch.device) -> int:
@@ -733,40 +493,62 @@ def _budget_runs(totals: np.ndarray, budget: int) -> List[Tuple[int, int]]:
     return runs
 
 
+def _batch_pairs(tab: fof.SegmentedCells, fields, r0: int, r1: int,
+                 reach: Optional[float]):
+    """(erow, ecol, d2, own, nbr) of the sorted rows [r0, r1) of ``tab``
+    (``SegmentedCells.pairs``; ``reach`` None: every candidate) with the
+    ``fields`` (original row order) of each pair's two ends."""
+    erow, ecol, d2 = tab.pairs(r0, r1, reach)
+    telemetry.count("subset_batch_pairs", int(erow.shape[0]))
+    fs = {k: v[tab.order[r0:r1]] for k, v in fields.items()}
+    return erow, ecol, d2, fof._gather(fs, erow), fof._gather(fs, ecol)
+
+
+def _links(pred, erow, ecol, d2, own, nbr):
+    """The (row, column) pairs of ``_batch_pairs`` that ``pred`` links."""
+    m = pred(d2, own, nbr)
+    return erow[m], ecol[m]
+
+
 def _subset_batch(opt: C.Options, entries: List[dict],
-                  cells: fof.SegmentedCells, fields_s, ell, k0: int,
+                  cells: fof.SegmentedCells,
+                  first: Optional[fof.SegmentedCells], fields, ell, k0: int,
                   k1: int, preds, reach: float) -> None:
-    """The iterative subset search of structures k0..k1-1 (sorted rows
-    r0..r1-1): the in-reach pairs, the pred0 label fixed point and the
-    by-size renumbering per structure (a batch without a group ends
-    there), the other three criteria over the same pairs (the attach ones
-    both ways), the first attach, the cross-group link counts keyed by
-    (structure, i, j), one fetch of them and the host MergeGroups loop
-    per structure, the merge targets, the relaxed second attach, the
-    significance filter, the final renumbering per structure and one
-    fetch of the group counts.  Group ids run over the whole batch,
-    structure after structure, so no pass mixes two."""
+    """The subset search of structures k0..k1-1 (sorted rows r0..r1-1 of
+    ``cells``): the first pass's links (over ``cells``' pairs within
+    ``reach``, or over every candidate of ``first``, mapped to ``cells``'
+    rows), its label fixed point and the by-size renumbering per
+    structure (a batch without a group ends there); with ``iiterflag``
+    the expansions and the link merge over ``cells``' pairs
+    (``_expand_and_merge``); the significance filter, the final
+    renumbering per structure and one fetch of the group counts.  Group
+    ids run over the whole batch, structure after structure, so no pass
+    mixes two."""
     dev = ell.device
     nseg = k1 - k0
     r0, r1 = int(cells.starts[k0]), int(cells.starts[k1])
     n = r1 - r0
-    erow, ecol, d2 = cells.pairs(r0, r1, reach)
-    telemetry.count("subset_batch_pairs", int(erow.shape[0]))
-    fs = {k: v[r0:r1] for k, v in fields_s.items()}
-    own, nbr = fof._gather(fs, erow), fof._gather(fs, ecol)
-    pred0, pred_att, pred_att2, pred_merge = preds
-    m0 = pred0(d2, own, nbr)
-
+    pred0, minsize0, iterative = preds
     order = cells.order[r0:r1] - r0            # sorted -> original row
+    shared = None
+    if first is None:
+        shared = _batch_pairs(cells, fields, r0, r1, reach)
+        e0 = _links(pred0, *shared)
+    else:
+        e0 = _links(pred0, *_batch_pairs(first, fields, r0, r1, None))
+        if first is not cells:
+            # ``first``'s sorted rows -> ``cells``' sorted rows
+            to_cells = _scatter_back(torch.arange(n, device=dev), order)[
+                first.order[r0:r1] - r0]
+            e0 = (to_cells[e0[0]], to_cells[e0[1]])
     sid = cells.seg[r0:r1] - k0                # structure of each row
     first_row = torch.from_numpy(cells.starts[k0:k1] - r0).to(dev)
     src = order - first_row[sid]               # row within its structure
-    labels = fof.fof_labels_from_edges(erow[m0], ecol[m0], n,
-                                       undirected=True)
+    labels = fof.fof_labels_from_edges(*e0, n, undirected=True)
+    del e0
     sizes = torch.bincount(labels, minlength=n)
     min_src = torch.full((n,), BIG_I32, dtype=torch.int64,
                          device=dev).scatter_reduce_(0, labels, src, "amin")
-    minsize0 = max(2, int(opt.MinSize * opt.nminfac))
     gid, _, ng0 = seg.renumber_segments(sid, sizes, min_src,
                                         sizes >= minsize0, nseg)
     ngrp = int(ng0.sum())
@@ -775,21 +557,51 @@ def _subset_batch(opt: C.Options, entries: List[dict],
                     torch.zeros(n, dtype=torch.int64, device=dev),
                     np.zeros(nseg, np.int64))
         return
+    # the structure of each group id
+    gkey = torch.cat([ng0.new_zeros(1), torch.repeat_interleave(
+        torch.arange(nseg, device=dev), ng0, output_size=ngrp)])
+    lab = gid[labels]
+    if iterative is not None:
+        if shared is None:
+            shared = _batch_pairs(cells, fields, r0, r1, reach)
+        links = _iterative_links(iterative, *shared)
+        del shared
+        lab = _expand_and_merge(opt, links, lab, ng0, ngrp, gkey)
+    pfof = significance_filter(ell[r0:r1], _scatter_back(lab, order), ngrp,
+                               opt.ellthreshold, opt.siglevel, opt.MinSize)
+    sizes = torch.bincount(pfof, minlength=ngrp + 1)
+    ids = torch.arange(ngrp + 1, device=dev)
+    _, local, ngf = seg.renumber_segments(
+        gkey, sizes, ids, (sizes >= opt.MinSize) & (ids > 0), nseg)
+    _fill_batch(entries, cells, k0, k1, local[pfof], fetch_small(ngf))
+
+
+def _iterative_links(iterative, erow, ecol, d2, own, nbr):
+    """(merge, first attach, second attach) links of ``_batch_pairs``'
+    pairs: the merge criterion once a pair, the attach criteria both
+    ways."""
+    pred_att, pred_att2, pred_merge = iterative
 
     def both_ways(pred):
         mf, mb = pred(d2, own, nbr), pred(d2, nbr, own)
         return (torch.cat([erow[mf], ecol[mb]]),
                 torch.cat([ecol[mf], erow[mb]]))
 
-    mm = pred_merge(d2, own, nbr)
-    em = (erow[mm], ecol[mm])
-    att1, att2 = both_ways(pred_att), both_ways(pred_att2)
-    del own, nbr, erow, ecol, d2, m0, mm
-    # the structure of each group id, and each structure's first id - 1
-    gkey = torch.cat([ng0.new_zeros(1), torch.repeat_interleave(
-        torch.arange(nseg, device=dev), ng0, output_size=ngrp)])
-    gbase = torch.cumsum(ng0, 0) - ng0
-    lab1 = fof.attach_rounds(gid[labels], *att1, 16)
+    return (_links(pred_merge, erow, ecol, d2, own, nbr),
+            both_ways(pred_att), both_ways(pred_att2))
+
+
+def _expand_and_merge(opt: C.Options, links, lab, ng0, ngrp: int,
+                      gkey) -> torch.Tensor:
+    """The iterative passes from the first pass's group ids ``lab``
+    (sorted rows) along ``_iterative_links``: the first attach, the
+    cross-group link counts keyed by (structure, i, j), one fetch of them
+    and the host MergeGroups loop per structure (``_merge_targets``), the
+    merge targets and the relaxed second attach.  Returns the group ids
+    of the sorted rows."""
+    em, att1, att2 = links
+    gbase = torch.cumsum(ng0, 0) - ng0         # each structure's first id - 1
+    lab1 = fof.attach_rounds(lab, *att1, 16)
     sizes1 = torch.bincount(lab1, minlength=ngrp + 1)
     gi, gj = lab1[em[0]], lab1[em[1]]
     gi, gj = torch.cat([gi, gj]), torch.cat([gj, gi])
@@ -799,20 +611,13 @@ def _subset_batch(opt: C.Options, entries: List[dict],
     ng0_h, pk, pi, pj, pc, szj = fetch_small(
         (ng0, pk, pi, pj, pc, sizes1[gbase[pk] + pj]))
     target = torch.from_numpy(_merge_targets(opt, ng0_h, pk, pi, pj, pc,
-                                             szj)).to(dev)
-    lab2 = fof.attach_rounds(target[lab1], *att2, 16)
-    pfof = significance_filter(ell[r0:r1], _scatter_back(lab2, order), ngrp,
-                               opt.ellthreshold, opt.siglevel, opt.MinSize)
-    sizes = torch.bincount(pfof, minlength=ngrp + 1)
-    ids = torch.arange(ngrp + 1, device=dev)
-    _, local, ngf = seg.renumber_segments(
-        gkey, sizes, ids, (sizes >= opt.MinSize) & (ids > 0), nseg)
-    _fill_batch(entries, cells, k0, k1, local[pfof], fetch_small(ngf))
+                                             szj)).to(lab.device)
+    return fof.attach_rounds(target[lab1], *att2, 16)
 
 
 def _merge_targets(opt: C.Options, ng0, pk, pi, pj, pc, szj) -> np.ndarray:
     """The batch's merge map over its group ids: per structure the
-    reference's MergeGroups loop (``merge_linked_groups``) over its
+    reference's MergeGroups loop (search.cxx:1200-1224, 3894) over its
     lexicographic (i, j) link pairs in local ids: j joins i when their
     links outnumber fmerge x (j's size after the first attach), unless
     either was absorbed.  A pair under the float64 threshold never merges
@@ -842,27 +647,6 @@ def _fill_batch(entries: List[dict], cells: fof.SegmentedCells, k0: int,
         a = int(cells.starts[k]) - r0
         entries[k]["sub"] = sub[a:a + entries[k]["nsub"]]
         entries[k]["ng_sub"] = int(ng[k - k0])
-
-
-def search_level_subsets(opt: C.Options, entries: List[dict]) -> None:
-    """The subset search of a level's structures (``search_sub_sub``'s
-    entries): ``search_subset_batch`` whenever ``_batchable_subset``
-    holds, else ``search_subset`` structure by structure.  Counts
-    ``subset_batched_*`` structures and padded particles and
-    ``subset_sequential_structures`` in ``utils/telemetry``, as the
-    reference does."""
-    if _batchable_subset(opt):
-        search_subset_batch(opt, entries)
-        telemetry.count("subset_batched_structures", len(entries))
-        telemetry.count("subset_batched_particles",
-                        sum(e["npad"] for e in entries))
-        return
-    for e in entries:
-        nsub = e["nsub"]
-        e["sub"], e["ng_sub"] = search_subset(
-            opt, e["ppos"][:nsub], e["pvel"][:nsub], e["pmass"][:nsub],
-            e["ell"][:nsub], bounds=e["bounds"], npad=e["npad"])
-        telemetry.count("subset_sequential_structures")
 
 
 # ---------------------------------------------------------------------------
@@ -1113,110 +897,6 @@ def _f32(x: float, dev) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=dev)
 
 
-def halo_core_search(opt: C.Options, pos, vel, mass, valid, pfof_sub,
-                     sublevel: int = 1, bounds=None
-                     ) -> Tuple[torch.Tensor, int]:
-    """6DFOF core search with shrinking linking lengths, then phase-tensor
-    core growth.  ``pfof_sub``: substructure ids (those particles are
-    left out).  Returns (int64 core id per particle, ncores): core 1 is
-    the main core, 2..ncores merger remnants to promote (reference
-    iHaloCoreSearch = 2).  The velocity scale stays on the device in
-    float64 and the criterion takes it as a float32 tensor, as in
-    ``search_cores_batch``, which gives the same ids."""
-    n = pos.shape[0]
-    dev = pos.device
-    pfof_sub = pfof_sub.long()
-    nvalid = int(valid.sum())
-    ellv2 = _core_sigv2(vel, mass, valid,
-                        torch.zeros(n, dtype=torch.int64, device=dev),
-                        1)[0] * opt.halocorevfac ** 2
-    ellx = _core_ellx(opt, sublevel)
-    ellx2 = ellx * ellx
-    minsize = max(int(nvalid * opt.halocorenfac *
-                      opt.halocorenumfaciter ** (sublevel - 1)), opt.MinSize)
-
-    with span("cores.fof"):
-        core = torch.zeros(n, dtype=torch.int64, device=dev)
-        ncores = 0
-        # the linking length only shrinks: the loop-0 table holds every
-        # later loop's pairs
-        edges = None
-        if _batchable_cores(opt):
-            edges = fof.build_edges(pos, math.sqrt(ellx2),
-                                    fields={"vel": vel},
-                                    predicate=fof.Pred3D(float(ellx2)),
-                                    bounds=bounds)
-        untagged = valid & (pfof_sub == 0)
-        for loop in range(max(1, opt.halocorenumloops)):
-            elig = untagged if loop == 0 else untagged & (core == 1)
-            pred = Pred6DCore(_f32(ellx2, dev),
-                              torch.clamp_min(ellv2, 1e-30).float())
-            if edges is not None:
-                fields_s = dict(edges.fields_s)
-                fields_s["elig"] = elig.to(torch.int32)[edges.order]
-                mask = fof.refine_edge_mask(edges.pos_s, fields_s,
-                                            edges.erow, edges.ecol,
-                                            edges.boxsize, pred)
-                labels = fof.fof_labels_from_edges(
-                    edges.erow[mask], edges.ecol[mask], n,
-                    undirected=edges.undirected)
-                pfc_s, ngc = fof.renumber_by_size(labels, minsize,
-                                                  orig_index=edges.order)
-                pfc = _scatter_back(pfc_s.long(), edges.order)
-            else:
-                pfc, ngc = fof.fof3d(pos, math.sqrt(ellx2),
-                                     min_size=minsize, vel=vel,
-                                     extra_fields={
-                                         "elig": elig.to(torch.int32)},
-                                     predicate=pred, bounds=bounds)
-                pfc = pfc.long()
-            if ngc == 0:
-                break
-            if loop == 0:
-                core, ncores = pfc, ngc
-            else:
-                # the refined main core replaces core 1; extra groups
-                # append
-                core = torch.where((core == 1) & (pfc == 0), 0, core)
-                core = torch.where(pfc == 1, 1, core)
-                if ngc > 1:
-                    core = torch.where(pfc > 1, pfc - 1 + ncores, core)
-                    ncores += ngc - 1
-            ellx2 *= opt.halocorexfaciter ** 2
-            ellv2 = ellv2 * opt.halocorevfaciter ** 2
-            minsize = max(int(minsize * opt.halocorenumfaciter),
-                          opt.MinSize)
-            if minsize * opt.halocorenumfaciter >= nvalid:
-                break
-    if ncores < 2:
-        return torch.zeros(n, dtype=torch.int64, device=dev), 0
-    if opt.iHaloCoreSearch >= 2 and opt.iPhaseCoreGrowth:
-        with span("cores.growth"):
-            core = _phase_tensor_growth(pos, vel, mass, valid, pfof_sub,
-                                        core, ncores)
-    return core, ncores
-
-
-def _phase_tensor_growth(pos, vel, mass, valid, pfof_sub, core,
-                         ncores: int, iters: int = 4) -> torch.Tensor:
-    """Untagged halo particles join the core of least Mahalanobis phase
-    distance, the cores' phase means and dispersion tensors recomputed
-    each of ``iters`` steps (``_core_moments``, ``_phase_distance``: the
-    arithmetic of ``_phase_tensor_growth_batch``)."""
-    phase = torch.cat([pos, vel], 1)
-    assignable = valid & (pfof_sub == 0)
-    core = core.long()
-    for _ in range(iters):
-        w = torch.where((core > 0) & valid, mass, 0.0)
-        order = torch.argsort(core, stable=True)
-        mu, chol = _core_moments(core[order], w[order], phase[order],
-                                 ncores + 1)
-        md = _phase_distance(phase[:, None, :] - mu[None, 1:, :], chol[1:])
-        best = torch.argmin(md, 1) + 1
-        core = torch.where(assignable, best, core)
-    return core
-
-
 def _core_moments(key, w, phase, nkeys: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each core's mass-weighted phase mean (nkeys, 6) and the lower
@@ -1276,34 +956,30 @@ def _phase_distance(dd: torch.Tensor, chol: torch.Tensor) -> torch.Tensor:
     return md
 
 
-def _batchable_cores(opt: C.Options) -> bool:
-    """Whether ``search_cores_batch`` serves the options: the linking
-    length only shrinks over the loops (``halocorexfaciter`` <= 1), so one
-    loop-0 pair table holds every loop's pairs, as in
-    ``halo_core_search``."""
-    return opt.halocorexfaciter <= 1.0
-
-
 def search_cores_batch(opt: C.Options, entries: List[dict], level: int,
                        pair_budget: Optional[int] = None
                        ) -> List[Tuple[torch.Tensor, int]]:
-    """``halo_core_search`` of many structures at once: per entry
-    (``search_sub_sub``'s, ``sub`` set by the subset search) its (int64
-    core ids in its row order, ncores), those of the per-structure
-    search.  Needs ``_batchable_cores(opt)``.
+    """The merger-core search (reference search.cxx:1530-1816 and
+    HaloCoreGrowth:1817) of many structures at once (one structure is a
+    batch of one): per entry (``search_sub_sub``'s, ``sub`` set by the
+    subset search) its (int64 core ids in its row order, ncores).  Core 1
+    is the main core, 2..ncores merger remnants to promote (reference
+    iHaloCoreSearch = 2): 6DFOF between the untagged rows with a length
+    that changes by ``halocorexfaciter`` a loop, then the phase-tensor
+    growth.
 
     One cell sort of every structure's rows keyed by (structure, cell),
-    each on its own grid over its padded bounds at the loop-0 length
-    (``fof.segmented_cells``), as ``halo_core_search`` grids it alone;
-    then batches of whole structures whose candidate slots fit
-    ``pair_budget`` (default ``_pair_budget``), one fetch of the
-    per-structure totals setting them.  Each batch runs ``_cores_batch``
-    in a ``cores.batch`` span."""
+    each on its own grid over its padded bounds at the longest length of
+    the loops (``fof.segmented_cells``), and one pair table there, which
+    every loop cuts by its own length; then batches of whole structures
+    whose candidate slots fit ``pair_budget`` (default ``_pair_budget``),
+    one fetch of the per-structure totals setting them.  Each batch runs
+    ``_cores_batch`` in a ``cores.batch`` span.  A structure's ids do not
+    depend on the others in its batch: the velocity scale's segment sums,
+    the link's tensor divisions and the growth's elementwise Cholesky
+    factor and distance round the same in any batch."""
     if not entries:
         return []
-    if not _batchable_cores(opt):
-        raise ValueError(f"halocorexfaciter {opt.halocorexfaciter} > 1 "
-                         "takes the per-structure search")
     dev = entries[0]["ppos"].device
     nsub = [int(e["nsub"]) for e in entries]
 
@@ -1314,9 +990,11 @@ def search_cores_batch(opt: C.Options, entries: List[dict], level: int,
                              ("ppos", "pvel", "pmass", "valid"))
     sub = rows("sub").long()
     ellx = _core_ellx(opt, level)
-    ellx2 = ellx * ellx
+    ellx2 = [ellx * ellx]                      # each loop's squared length
+    for _ in range(1, max(1, opt.halocorenumloops)):
+        ellx2.append(ellx2[-1] * opt.halocorexfaciter ** 2)
     cells = fof.segmented_cells(pos, nsub, [e["bounds"] for e in entries],
-                                math.sqrt(ellx2))
+                                math.sqrt(max(ellx2)))
     sigv2 = _core_sigv2(vel, mass, valid, cells.seg, len(entries))
     totals = fetch_small(cells.candidates())
     out = []
@@ -1335,18 +1013,19 @@ def search_cores_batch(opt: C.Options, entries: List[dict], level: int,
 
 
 def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
-                 valid, sub, sigv2, k0: int, k1: int, ellx2: float,
+                 valid, sub, sigv2, k0: int, k1: int, ellx2: List[float],
                  level: int):
     """The core search of structures k0..k1-1 (``pos`` ... ``sub``: their
-    rows), each structure's lengths, ``minsize``, cores and a live flag
-    on the device.  The loop-0 pairs once; each loop the 6D links between
-    the live structures' eligible rows, one label fixed point over their
-    union, one renumbering by size per structure (ties by the row within
-    the structure, each its own ``minsize``), the core bookkeeping, and
-    one fetch of the live count.  A structure stops where
-    ``halo_core_search`` breaks (no core found, or ``minsize`` about to
-    reach its rows) and keeps its cores.  Then one fetch of the core
-    counts and the growth of the structures with two or more.  Returns
+    rows; ``ellx2``: each loop's squared length), each structure's
+    velocity scale, ``minsize``, cores and a live flag on the device.
+    The pairs within the longest length once; each loop the 6D links
+    between the live structures' eligible rows, one label fixed point
+    over their union, one renumbering by size per structure (ties by the
+    row within the structure, each its own ``minsize``), the core
+    bookkeeping, and one fetch of the live count.  A structure stops when
+    a loop finds no core or ``minsize`` is about to reach its rows, and
+    keeps its cores.  Then one fetch of the core counts and the growth of
+    the structures with two or more.  Returns
     (core ids in row order, host ncores, loops, fixed-point sweeps)."""
     dev = pos.device
     nseg = k1 - k0
@@ -1360,7 +1039,8 @@ def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
     src = order - (torch.cumsum(counts, 0) - counts)[sid]
     loops = sweeps = 0
     with span("cores.fof"):
-        erow, ecol, d2 = cells.pairs(r0, r1, math.sqrt(ellx2), b2=ellx2)
+        b2 = max(ellx2)
+        erow, ecol, d2 = cells.pairs(r0, r1, math.sqrt(b2), b2=b2)
         vel_s = vel[order]
         dv2 = seg.sq3(vel_s[erow] - vel_s[ecol])
         eseg = sid[erow]
@@ -1380,7 +1060,7 @@ def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
             if loop > 0:
                 elig = elig & (core == 1)
             v2 = torch.clamp_min(ellv2, 1e-30).float()
-            ok = _core_link(d2, dv2, _f32(ellx2, dev), v2[eseg]) & \
+            ok = _core_link(d2, dv2, _f32(ellx2[loop], dev), v2[eseg]) & \
                 elig[erow] & elig[ecol]
             # a link that fails is a self-link: no compaction, no sync
             labels, nsw = fof.fof_labels_from_edges(
@@ -1409,7 +1089,6 @@ def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
                 nc_new = ncores + torch.clamp_min(ngc - 1, 0)
             core = torch.where(upd[sid], new, core)
             ncores = torch.where(upd, nc_new, ncores)
-            ellx2 *= opt.halocorexfaciter ** 2
             ellv2 = ellv2 * opt.halocorevfaciter ** 2
             shrunk = torch.clamp_min(
                 (minsize.double() * opt.halocorenumfaciter).long(),
@@ -1433,9 +1112,12 @@ def _cores_batch(opt: C.Options, cells: fof.SegmentedCells, pos, vel, mass,
 def _phase_tensor_growth_batch(pos, vel, mass, valid, pfof_sub, core, sid,
                                ncores, ncmax: int, nkeys: int,
                                iters: int = 4) -> torch.Tensor:
-    """``_phase_tensor_growth`` of many structures at once: rows
-    consecutive by structure (``sid``), ``ncores`` per structure (0 where
-    it takes no growth; its rows stay 0).  Cores keyed (structure, core),
+    """Untagged halo particles join the core of least Mahalanobis phase
+    distance, the cores' phase means and dispersion tensors recomputed
+    each of ``iters`` steps (``_core_moments``, ``_phase_distance``), for
+    many structures at once: rows consecutive by structure (``sid``),
+    ``ncores`` per structure (0 where it takes no growth; its rows stay
+    0).  Cores keyed (structure, core),
     one stable sort and one set of segment sums a step, each row's
     distance to its own structure's cores only (padded to ``ncmax`` at
     +inf), the lowest core id on a tie."""
@@ -1628,7 +1310,7 @@ def search_sub_sub(opt: C.Options, pos, vel, mass, pfof, ngroups: int,
                                                  mesh)
             else:
                 with lap("subset"):
-                    search_level_subsets(opt, prep)
+                    search_subset_batch(opt, prep)
                 with lap("cores"):
                     search_level_cores(opt, prep, level, cores_on)
             with lap("unbind"):
@@ -1719,30 +1401,22 @@ def search_level_cores(opt: C.Options, entries: List[dict], level: int,
                        cores_on: bool) -> None:
     """The merger-core lap of a level's structures (``search_sub_sub``'s
     entries, ``sub`` set by the subset search): the core search of them
-    all in ``search_cores_batch`` whenever ``_batchable_cores`` holds,
-    else ``halo_core_search`` structure by structure, then each
-    structure's promotion and host merges (``_cores_and_merges``).
-    Counts ``cores_batched_structures`` and
-    ``cores_sequential_structures`` in ``utils/telemetry``."""
+    all in ``search_cores_batch`` (none with the search off or past
+    ``maxnlevelcoresearch``), then each structure's promotion and host
+    merges (``_cores_and_merges``)."""
     found: List[Optional[Tuple[torch.Tensor, int]]] = [None] * len(entries)
     if entries and cores_on and level <= opt.maxnlevelcoresearch:
-        if _batchable_cores(opt):
-            found = search_cores_batch(opt, entries, level)
-            telemetry.count("cores_batched_structures", len(entries))
-        else:
-            telemetry.count("cores_sequential_structures", len(entries))
+        found = search_cores_batch(opt, entries, level)
     for e, f in zip(entries, found):
-        _cores_and_merges(opt, e, level, cores_on, f)
+        _cores_and_merges(opt, e, level, f)
 
 
 def _cores_and_merges(opt: C.Options, e: dict, level: int,
-                      cores_on: bool,
-                      found: Optional[Tuple[torch.Tensor, int]] = None
-                      ) -> None:
-    """The merger-core search of one structure, or its result ``found``
-    (core ids, ncores) from ``search_cores_batch``: cores beyond the main
-    one become substructures after its subset groups; then the phase
-    merges (``coresubmergemindist`` > 0) on the host."""
+                      found: Optional[Tuple[torch.Tensor, int]]) -> None:
+    """One structure's merger cores ``found`` (core ids, ncores) by
+    ``search_cores_batch``, None where no core search ran: cores beyond
+    the main one become substructures after its subset groups; then the
+    phase merges (``coresubmergemindist`` > 0) on the host."""
     with span("substructure.cores.structure", g=e.get("g"),
               nsub=e["nsub"], level=level):
         nsub, ng_sub, sub = e["nsub"], e["ng_sub"], e["sub"]
@@ -1753,25 +1427,21 @@ def _cores_and_merges(opt: C.Options, e: dict, level: int,
         def host_arrays():
             return tuple(a.cpu().numpy() for a in (ppos, pvel, pmass))
 
-        if cores_on and level <= opt.maxnlevelcoresearch:
-            core, ncores = found if found is not None else \
-                halo_core_search(opt, ppos, pvel, pmass, e["valid"][:nsub],
-                                 sub, sublevel=level, bounds=e["bounds"])
-            if ncores >= 2:
-                extra = (core > 1) & (sub == 0)
-                sub = torch.where(extra, core - 1 + ng_sub, sub)
-                ncore_extra = ncores - 1
-                if opt.coresubmergemindist > 0 and ng_sub > 0:
-                    with span("cores.merge"):
-                        host = host_arrays()
-                        sub_np, ncore_extra = \
-                            merge_substructures_cores_phase(
-                                *host, sub.cpu().numpy(), ng_sub,
-                                ncore_extra, opt.coresubmergemindist)
-                        sub = torch.from_numpy(
-                            sub_np.astype(np.int64)).to(sub.device)
-                telemetry.count("subsub_cores_promoted", ncore_extra)
-                ng_sub += ncore_extra
+        if found is not None and found[1] >= 2:
+            core, ncores = found
+            extra = (core > 1) & (sub == 0)
+            sub = torch.where(extra, core - 1 + ng_sub, sub)
+            ncore_extra = ncores - 1
+            if opt.coresubmergemindist > 0 and ng_sub > 0:
+                with span("cores.merge"):
+                    host = host_arrays()
+                    sub_np, ncore_extra = merge_substructures_cores_phase(
+                        *host, sub.cpu().numpy(), ng_sub, ncore_extra,
+                        opt.coresubmergemindist)
+                    sub = torch.from_numpy(
+                        sub_np.astype(np.int64)).to(sub.device)
+            telemetry.count("subsub_cores_promoted", ncore_extra)
+            ng_sub += ncore_extra
         if opt.coresubmergemindist > 0 and ng_sub > 1:
             with span("cores.merge"):
                 host = host or host_arrays()

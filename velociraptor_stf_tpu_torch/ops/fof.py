@@ -267,25 +267,30 @@ class SegmentedCells:
         ends = torch.from_numpy(self.starts).to(cum.device)
         return cum[ends[1:]] - cum[ends[:-1]]
 
-    def pairs(self, r0: int, r1: int, reach: float,
+    def pairs(self, r0: int, r1: int, reach: Optional[float],
               b2: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(erow, ecol, d2): each pair of the sorted rows [r0, r1) within
         ``reach`` once (column after row, as ``build_edges``' each-pair-
         once form), indices relative to r0, open-boundary separations.
         ``b2``: the squared reach as ``Pred3D`` takes it (default
-        reach * reach).  [r0, r1) must hold whole segments."""
-        pred = Pred3D(reach * reach if b2 is None else b2)
+        reach * reach); ``reach`` None: every candidate of the windows,
+        as ``build_edges`` hands them to a criterion.  [r0, r1) must hold
+        whole segments."""
+        pred = None if reach is None else \
+            Pred3D(reach * reach if b2 is None else b2)
         rows, cols, d2s = [], [], []
         for row, col in cell_pairs(self.cell[r0:r1], self.win):
             row = row + r0
             fwd = col > row
             row, col = row[fwd], col[fwd]
             d2 = pair_d2(self.pos_s[row], self.pos_s[col], None)
-            ok = pred(d2, {}, {})
-            rows.append(row[ok] - r0)
-            cols.append(col[ok] - r0)
-            d2s.append(d2[ok])
+            if pred is not None:
+                ok = pred(d2, {}, {})
+                row, col, d2 = row[ok], col[ok], d2[ok]
+            rows.append(row - r0)
+            cols.append(col - r0)
+            d2s.append(d2)
         if not rows:
             e = torch.zeros(0, dtype=torch.int64, device=self.pos_s.device)
             return e, e, self.pos_s.new_zeros(0)

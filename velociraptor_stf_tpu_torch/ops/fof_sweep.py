@@ -20,10 +20,7 @@ them (a candidate superset plus an exact test gives exact FOF links):
 
 A context builds each index at its first use and keeps it, so the full
 context builds only the column index, a subset that a fixed point sweeps
-only cell windows, each once.  ``block_windows``, the reference's layout
-(per block of consecutive slots, the nine ranges from the block's first
-cell to its last), is kept as the port of ``_block_ranges`` and held to it
-bit for bit by the tests; the search does not call it.
+only cell windows, each once.
 
 Periodic boxes get ghost images of the particles within ``reach`` of a face
 (three axis passes, so corners compose), which makes the grid
@@ -49,7 +46,6 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import R_BLOCK
 from ..kernels import fof_sweep as K
 from ..kernels._common import BIG_I32
 from .cells import CellGrid, build_grid, cell_coords, limit_columns
@@ -99,81 +95,6 @@ def _ghost_pass(pos: torch.Tensor, src: torch.Tensor, axis: int,
     shift = torch.where(lo[idx], boxsize, -boxsize).to(pos.dtype)
     ghost[:, axis] = ghost[:, axis] + shift
     return torch.cat([pos, ghost]), torch.cat([src, src[idx]])
-
-
-def _locate(key: torch.Tensor, stripe_start: torch.Tensor, qx: torch.Tensor,
-            qr: torch.Tensor, nx: int, nynz: int, right: bool
-            ) -> torch.Tensor:
-    """Position of the cell pair (qx, qr) in the sorted slots, searched
-    within stripe qx only (as the reference's per-stripe binary search):
-    0 left of the grid, the end of real slots right of it."""
-    qxc = qx.clamp(0, nx - 1)
-    pos = torch.searchsorted(key, qxc * nynz + qr, right=right)
-    pos = torch.minimum(torch.maximum(pos, stripe_start[qxc]),
-                        stripe_start[qxc + 1])
-    return torch.where(qx < 0, 0, torch.where(qx >= nx, stripe_start[nx],
-                                              pos))
-
-
-def block_windows(cx: torch.Tensor, cr: torch.Tensor,
-                  ncells: Tuple[int, int, int], rows: int = R_BLOCK,
-                  chunk: int = 1) -> torch.Tensor:
-    """(nblocks, 9, 2) int32 disjoint coverage windows (start, count) of
-    each block of ``rows`` cell-sorted slots, one per (dx, dy) offset
-    before merging (reference ``_block_ranges``, pallas_fof.py:301).
-
-    Window(dx, dy) = [locate(cx0+dx, r0 + dy*nz - 1),
-                      locate(cx1+dx, r1 + dy*nz + 1)).  The windows of a
-    block can overlap, and a column scanned twice would count twice in the
-    detect pass, so they are merged into their disjoint union: sorted by
-    start, each start clamped past the running covered end.
-
-    No kernel of the port takes these windows and the search does not
-    build them.  With the reference's chunk (CH = 1024) and rows (512) --
-    and its padded ``cx``/``cr`` -- this reproduces the reference's windows
-    in chunk units bit for bit; ``chunk=1`` gives exact slots.
-    Slots with ``cx == nx`` are padding and sort last."""
-    device = cx.device
-    ns = int(cx.shape[0])
-    nx, ny, nz = ncells
-    nynz = ny * nz
-    nblocks = -(-ns // rows)
-    key = cx * nynz + cr
-    stripe_start = torch.searchsorted(
-        cx, torch.arange(nx + 1, dtype=cx.dtype, device=device))
-    first = torch.arange(nblocks, device=device) * rows
-    last = torch.clamp(first + rows, max=ns) - 1
-    x0, r0, x1, r1 = cx[first], cr[first], cx[last], cr[last]
-    dxs = torch.tensor([-1, -1, -1, 0, 0, 0, 1, 1, 1],
-                       device=device)[:, None]
-    dys = torch.tensor([-1, 0, 1] * 3, device=device)[:, None]
-    # normalise the mixed radix (|offset| < nynz: one borrow/carry)
-    qr_lo = r0[None, :] + dys * nz - 1
-    borrow = (qr_lo < 0).long()
-    qx_lo = x0[None, :] + dxs - borrow
-    qr_lo = qr_lo + borrow * nynz
-    qr_hi = r1[None, :] + dys * nz + 1
-    carry = (qr_hi >= nynz).long()
-    qx_hi = x1[None, :] + dxs + carry
-    qr_hi = qr_hi - carry * nynz
-    s = _locate(key, stripe_start, qx_lo, qr_lo, nx, nynz, right=False)
-    e = _locate(key, stripe_start, qx_hi, qr_hi, nx, nynz, right=True)
-    nch_total = -(-ns // chunk)
-    valid = (e > s) & (x0[None, :] < nx)
-    c0 = torch.div(s, chunk, rounding_mode="floor")
-    length = torch.where(valid, -torch.div(-e, chunk, rounding_mode="floor")
-                         - c0, 0)
-    start = torch.where(length > 0, c0, nch_total)   # empty windows last
-    start, order = torch.sort(start, dim=0, stable=True)
-    length = torch.gather(length, 0, order)
-    run = start[0] + length[0]
-    out = [torch.stack([start[0], length[0]], -1)]
-    for w in range(1, 9):
-        st = torch.maximum(start[w], run)
-        ln = torch.clamp(start[w] + length[w] - st, min=0)
-        out.append(torch.stack([st, ln], -1))
-        run = torch.maximum(run, st + ln)
-    return torch.stack(out, 1).to(torch.int32)       # (nblocks, 9, 2)
 
 
 def column_index(cx: torch.Tensor, cr: torch.Tensor,

@@ -21,8 +21,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.transfer import fetch_small
-
 
 def pad_class(x: int, lo: int = 1024, align: int = 1024) -> int:
     """The reference's capacity class for ``x`` elements: the smallest
@@ -232,17 +230,6 @@ def pair_counts(gi: torch.Tensor, gj: torch.Tensor, mask: torch.Tensor,
             ends - starts)
 
 
-def pair_counts_sparse(gi: torch.Tensor, gj: torch.Tensor,
-                       mask: torch.Tensor,
-                       key: Optional[torch.Tensor] = None):
-    """``pair_counts`` as host numpy arrays, in one fetch: (i, j, counts),
-    or (key, i, j, counts) with a ``key`` (reference
-    ``pair_counts_sparse``: the sparse stand-in for a dense (ng+1)^2
-    link-count table, MergeGroups search.cxx:3894+)."""
-    k, a, b, c = pair_counts(gi, gj, mask, key)
-    return fetch_small((a, b, c) if k is None else (k, a, b, c))
-
-
 def renumber_segments(key: torch.Tensor, size: torch.Tensor,
                       tie: torch.Tensor, eligible: torch.Tensor,
                       nseg: int
@@ -252,8 +239,8 @@ def renumber_segments(key: torch.Tensor, size: torch.Tensor,
     (``key``, decreasing ``size``, increasing ``tie``).  Returns (gid,
     local, counts): per item its 1-based rank over all segments and
     within its own (0 when not eligible), and the (nseg,) eligible count
-    of each segment.  Within a segment this is ``renumber_by_size``'s and
-    ``_renumber_ids``' order, ties by the lower ``tie``."""
+    of each segment.  Within a segment this is ``renumber_by_size``'s
+    order, ties by the lower ``tie``."""
     idx = torch.nonzero(eligible).squeeze(1)
     o = torch.argsort(tie[idx], stable=True)
     o = o[torch.argsort(-size[idx][o], stable=True)]

@@ -7,12 +7,11 @@ independent, so sharding is data placement.
 The structures of a level are dealt whole to the shards by serpentine
 LPT on their sizes (``grouppack.assign_groups_lpt``); each shard runs one
 subset search over all of its structures
-(``models/substructure.py::search_level_subsets``: the batched search,
-or the per-structure one where the options need it), then one
-merger-core search over them (``search_level_cores``: batched likewise),
-and the candidate ids come back to the home device.  A structure's ids do not
-depend on the others it is searched with, and the splice keeps the
-single-device order, so ids and hierarchy come out the same.
+(``models/substructure.py::search_subset_batch``), then one merger-core
+search over them (``search_level_cores``), and the candidate ids come
+back to the home device.  A structure's ids do not depend on the others
+it is searched with, and the splice keeps the single-device order, so
+ids and hierarchy come out the same.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def distributed_structure_search(opt: C.Options, prep: List[dict],
             loc.update({k: col.move(e[k], d) for k in _ARRAYS})
             col.count_reshard("substructure", [loc[k] for k in _ARRAYS])
             local.append(loc)
-        S.search_level_subsets(opt, local)
+        S.search_subset_batch(opt, local)
         S.search_level_cores(opt, local, level, cores_on)
         for e, loc in zip(mine, local):
             e["sub"] = col.move(loc["sub"], mesh.home)

@@ -17,19 +17,13 @@ catalog and per stage.  The keys, each with its reader:
       test_torch_subcli.py, test_torch_spans.py)
   subsub_cores_promoted
       merger cores promoted to substructures (``chip_smoke.py`` phase 9)
-  subset_batched_structures / subset_batched_particles /
-  subset_sequential_structures
-      structures (and padded particles) whose subset search ran in the
-      level's batch, structures searched one by one
+  subset_batched_particles
+      padded particles of the structures whose subset search ran
       (tests/test_torch_subset_batch.py, test_torch_subcli.py,
       ``chip_smoke.py`` phase 9)
   subset_batches / subset_batch_candidates / subset_batch_pairs
-      the batched subset search's batches, candidate slots and in-reach
-      pairs (tests/test_torch_subset_batch.py, ``chip_smoke.py`` phase 9)
-  cores_batched_structures / cores_sequential_structures
-      structures whose merger cores were searched in the level's batch,
-      or one by one (tests/test_torch_cores_batch.py, ``chip_smoke.py``
-      phase 9)
+      the batched subset search's batches, candidate slots and pairs
+      tested (tests/test_torch_subset_batch.py, ``chip_smoke.py`` phase 9)
   baryon_pairs
       (baryon, tagged DM) candidate pairs of the association
       (``models/baryons.py``, ``parallel/distributed_baryons.py``;
