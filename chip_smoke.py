@@ -14,7 +14,9 @@ csrc`` and drives the port on the card, in phases:
    the kernels are built, and each one's lane-arithmetic instructions per
    pair are read from the library's SASS (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version, on the card, at the
-   shapes the main path gives it: detect counts and sweep labels exactly
+   shapes the main path gives it (the segmented moments of the property
+   stage at the hydro cell's: within rel 1e-9 of the float64 plain
+   version, two launches equal, each pass timed against its bytes): detect counts and sweep labels exactly
    equal (z-columns emptied in detect's index and rows whose windows are
    zeroed included), the potential within
    rel 1e-4 (and on a small case at the edges of its launch geometry,
@@ -2200,6 +2202,101 @@ def examples_case(torch, np, dev, C, kernels, report) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the hydro cell's segmented-moments passes (benchmark swifthydro6d.z6, one
+# catalog on the card, seed 2400000001): tagged rows, groups + 1, the five
+# hydro fields; pass A's and pass B's selections
+MOMENTS_ROWS = 167_898
+MOMENTS_NG1 = 679
+MOMENTS_NF = 5
+MOMENTS_SEL = {"A": 50, "B": 7}
+MOMENTS_RTOL = 1e-9
+
+
+def moments_registers(build_log: str) -> dict:
+    """{instance: (registers, spill bytes)} of the segmented-moments
+    kernel's instances (one per number of fields) from ``-Xptxas -v``."""
+    import re
+
+    out = {}
+    for block in re.split(r"Compiling entry function '", build_log)[1:]:
+        name = block.split("'", 1)[0]
+        if "moments_kernel" not in name:
+            continue
+        nf = re.search(r"moments_kernelILi(\d+)E", name)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if nf and regs and spill:
+            out[f"nf{nf[1]}"] = (int(regs[1]), int(spill[1]) + int(spill[2]))
+    return out
+
+
+def moments_case(torch, np, dev, build_log: str, report: list) -> None:
+    """Phase 2, the segmented-moments kernel (``kernels/moments.py``) at
+    the hydro cell's shapes: a pass A against the float64 plain version
+    (rel ``MOMENTS_RTOL`` of each column's largest magnitude: the same
+    products in another order), two launches equal bit for bit; the time
+    of each pass (CUDA events, mean of 3 after a warm-up) and of the plain
+    version (one synchronised run), and the bound: the rows, selections,
+    offsets and tables read once and the sums written once over the
+    memory rate.  No PyTorch call computes the function."""
+    from velociraptor_stf_tpu_torch.kernels import moments as MK
+    from velociraptor_stf_tpu_torch.ops import segments as seg
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    n, ng1, nf = MOMENTS_ROWS, MOMENTS_NG1, MOMENTS_NF
+    pfof = torch.sort(torch.randint(0, ng1, (n,), device=dev,
+                                    generator=g))[0]
+    rows = torch.cat([torch.rand(n, 3, device=dev, generator=g) * 12.5,
+                      torch.randn(n, 3, device=dev, generator=g) * 100.0,
+                      torch.rand(n, 1 + nf, device=dev, generator=g) + 0.5],
+                     1).contiguous()
+    offsets = seg.group_offsets(pfof, ng1 - 1)
+    times, plain = {}, {}
+    for name, S in MOMENTS_SEL.items():
+        sel = torch.rand(n, S, device=dev, generator=g) < 0.3
+        tab = torch.randn(S, ng1, 3, device=dev, generator=g,
+                          dtype=torch.float64)
+        axis = torch.nn.functional.normalize(tab, dim=-1)
+        tabs = [(0, s, s) for s in range(S)]
+        args = (rows, nf if name == "A" else 0, offsets, sel, tabs,
+                tab[:1] * 12.5, tab * 100.0, axis)
+        got = MK.segment_moments(*args)
+        if not torch.equal(got, MK.segment_moments(*args)):
+            raise AssertionError(f"segment_moments pass {name}: two "
+                                 f"launches differ")
+        want = MK.segment_moments_ref(*args)
+        scale = want.abs().amax(dim=(0, 1), keepdim=True)
+        err = float(((got - want).abs() / torch.clamp_min(
+            scale, 1e-300)).max())
+        if err > MOMENTS_RTOL:
+            raise AssertionError(f"segment_moments pass {name}: rel {err}")
+        times[name] = cuda_ms(torch, lambda: MK.segment_moments(*args))
+        plain[name] = wall_ms(torch, lambda: MK.segment_moments_ref(*args))
+        nb = sum(t.numel() * t.element_size() for t in
+                 (rows, offsets, sel, *args[5:], got))
+        bound = nb / MEM_BYTES_PER_S * 1e3
+        log(f"kernel segment_moments pass {name}: {n} rows, {ng1} groups, "
+            f"{S} selections, {MK.columns(args[1])} columns: max rel {err:.3g}"
+            f", kernel {times[name]:.4f} ms, plain {plain[name]:.2f} ms, "
+            f"bound {bound:.4f} ms ({nb} bytes), share {bound / times[name]:.3f}")
+        if name == "A":
+            bound_a, bytes_a, err_a = bound, nb, err
+    regs = moments_registers(build_log)
+    log(f"segment_moments registers and spill bytes per instance: {regs}")
+    report.append({"name": "segment_moments", "route": "cuda",
+                   "source": "velociraptor_stf_tpu_torch/kernels/csrc/"
+                   "segment_moments.cu", "replaces": "none",
+                   "launches": 0, "max_rel_err": err_a,
+                   "ms": times["A"], "ms_pass_b": times["B"],
+                   "plain_ms": plain["A"], "bound_ms": bound_a,
+                   "bound_by": "bytes", "bytes": bytes_a,
+                   "library_ms": None,
+                   "share_of_bound": bound_a / times["A"], "rows": n,
+                   "groups": ng1, "selections": MOMENTS_SEL,
+                   "registers": regs})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=256 ** 3,
@@ -2257,6 +2354,7 @@ def main() -> int:
     report: list = []
     t0 = time.perf_counter()
     check_kernels(torch, np, tpos, tvel, tmass, opt, sass, ptxas, report)
+    moments_case(torch, np, dev, build_log, report)
     log(f"phase 2 kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the small oracle case, exact partition

@@ -227,7 +227,8 @@ from velociraptor_stf_tpu_torch.io import cache
 from velociraptor_stf_tpu_torch import api, cli, particles
 assert _build._lib is None           # nothing compiled at import
 assert set(kernels.LAUNCHES) == {"fof_detect", "fof_sweep3d",
-                                 "fof_sweep6d", "potential"}
+                                 "fof_sweep6d", "potential",
+                                 "segment_moments"}
 """ + NO_JAX_PACKAGE + """
 print("OK")
 """

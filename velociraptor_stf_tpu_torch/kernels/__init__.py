@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels, their plain PyTorch versions and launch counts.
 
 Each wrapper (``fof_sweep.detect`` / ``sweep3d`` / ``sweep6d``,
-``potential.potential``) runs its plain version for a tensor on the CPU and
+``potential.potential``, ``moments.segment_moments``) runs its plain version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on a GPU; it never falls back from one
 to the other.  ``LAUNCHES`` counts the CUDA launches of each kernel, so a
 run can show that its main path went through the kernels.
@@ -16,7 +16,7 @@ library at the first launch).
 R_BLOCK = 256
 
 LAUNCHES = {"fof_detect": 0, "fof_sweep3d": 0, "fof_sweep6d": 0,
-            "potential": 0}
+            "potential": 0, "segment_moments": 0}
 
 
 def reset_launches() -> None:

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # every launching entry point returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # (packed (x, y, z, z cell), z-column, column starts, ns, nx, ny, b2,
@@ -48,6 +49,10 @@ _SIGNATURES = {
     # (packed (x, y, z, m), row windows, ns, items, nitems, first, eps2,
     #  scratch, out, stream)
     "vr_potential": (_P, _P, _I, _P, _I, _P, _F, _P, _P, _P),
+    # (rows, F, nf, n, offsets, ng1, sel, S, s0, ns, host table indices,
+    #  centre, uvel, axis, out, stream)
+    "vr_segment_moments": (_P, _I, _I, _L, _P, _I, _P, _I, _I, _I, _P, _P,
+                           _P, _P, _P, _P),
 }
 
 _lib = None

@@ -39,7 +39,7 @@ from ..ops import so as so_ops
 from ..utils import config as C
 from ..utils import units
 from ..utils.timing import span
-from ..utils.transfer import fetch_bulk, stage_in
+from ..utils.transfer import fetch_bulk, fetch_small, stage_in
 
 
 @dataclass
@@ -420,7 +420,7 @@ def find_structures(opt: C.Options, pos, vel, mass,
                     ptype=None if ptype is None else ptype[sub],
                     boxsize=boxsize, pertype=pertype,
                     **{k: v[sub] for k, v in hydro.items()})
-                props_np = {k: v.cpu().numpy()[:ng + 1] for k, v in pr.items()}
+                props_np = {k: v[:ng + 1] for k, v in fetch_small(pr).items()}
                 del pr, sub
         del hydro
 

@@ -54,6 +54,11 @@ catalog and per stage.  The keys, each with its reader:
   transfer_pinned_bytes
       the ring's page-locked bytes, counted once, when it is allocated
       (all four: tests/test_torch_transfer_staging.py)
+  props_moment_passes / props_moment_selections
+      the property stage's segmented-moments passes (on a card, launches
+      of ``kernels/moments.py::segment_moments``) and the selections they
+      summed (``models/properties.py``; on the ``properties`` span;
+      tests/test_torch_moments.py, ``chip_smoke.py`` phase 5)
 """
 
 from __future__ import annotations

@@ -208,14 +208,46 @@ def _ring_out(t: torch.Tensor) -> np.ndarray:
     return out.numpy()
 
 
-def _get(x):
+def _leaves(x, out: List[torch.Tensor]) -> None:
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    if isinstance(x, (list, tuple)):
-        return type(x)(_get(v) for v in x)
-    if isinstance(x, dict):
-        return {k: _get(v) for k, v in x.items()}
-    return np.asarray(x)
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _leaves(v, out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _leaves(v, out)
+
+
+def _get(x):
+    """``x`` with every tensor as numpy.  The tensors of a card come back
+    in one copy per (card, dtype): concatenated there, then cut into
+    views of the host copy."""
+    leaves: List[torch.Tensor] = []
+    _leaves(x, leaves)
+    host, groups = {}, collections.defaultdict(list)
+    for t in leaves:
+        if t.device.type == "cpu":
+            host[id(t)] = t.numpy()
+        else:
+            groups[(t.device, t.dtype)].append(t)
+    for ts in groups.values():
+        flat = torch.cat([t.reshape(-1) for t in ts]).cpu().numpy()
+        o = 0
+        for t in ts:
+            host[id(t)] = flat[o:o + t.numel()].reshape(t.shape)
+            o += t.numel()
+
+    def build(v):
+        if isinstance(v, torch.Tensor):
+            return host[id(v)]
+        if isinstance(v, (list, tuple)):
+            return type(v)(build(e) for e in v)
+        if isinstance(v, dict):
+            return {k: build(e) for k, e in v.items()}
+        return np.asarray(v)
+
+    return build(x)
 
 
 def fetch_small(x):
